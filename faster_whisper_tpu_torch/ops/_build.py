@@ -1,0 +1,117 @@
+"""Builds the port's CUDA kernels with ``nvcc`` and loads them with ctypes.
+
+Each source under ``csrc/`` has a plain C interface and becomes one shared
+library under ``build/torch_kernels/`` at the root of the checkout, named
+after a hash of the source and the compiler flags: an unchanged source is
+built once and then reused.  The build runs at first use, or for every
+source at once (one ``nvcc`` per source, started together) through
+``build()``.  A failed build raises; nothing falls back to a plain version.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# source file -> {C function: argtypes}; every function returns a
+# cudaError_t as an int, 0 on success.
+SIGNATURES = {
+    "beam_attention.cu": {
+        "fwt_beam_attend_append_bf16": [_P] * 8 + [_I] * 6 + [_F, _P],
+    },
+    "flash_attention.cu": {
+        "fwt_mha_flash_bf16": [_P] * 4 + [_I] * 3 + [_F, _P],
+    },
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
+            "are built from source at first use"
+        )
+    return path
+
+
+def library_path(source: str) -> Path:
+    digest = hashlib.sha256(
+        (CSRC_DIR / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
+
+
+def build(sources: Optional[Iterable[str]] = None) -> Dict[str, str]:
+    """Build the libraries that are missing, one ``nvcc`` per source, all
+    started together.  Returns {source: compiler output} (the ``-Xptxas
+    -v`` register and shared-memory lines), "(cached)" for a library that
+    was already built.  Raises if any build fails."""
+    sources = list(SIGNATURES if sources is None else sources)
+    logs, procs = {}, {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for src in sources:
+        out = library_path(src)
+        if out.exists():
+            logs[src] = "(cached)"
+            continue
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / src)]
+        procs[src] = (
+            subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            ),
+            tmp,
+            out,
+        )
+    failed = []
+    for src, (proc, tmp, out) in procs.items():
+        text, _ = proc.communicate()
+        logs[src] = text
+        if proc.returncode != 0:
+            failed.append(f"{src} (nvcc exit {proc.returncode}):\n{text}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return logs
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of ``source``, built first if it is missing."""
+    with _lock:
+        lib = _libs.get(source)
+        if lib is None:
+            build([source])
+            lib = ctypes.CDLL(str(library_path(source)))
+            for name, argtypes in SIGNATURES[source].items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _libs[source] = lib
+        return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a nonzero CUDA error code returned by a launcher."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")

@@ -1,0 +1,791 @@
+"""Transcription orchestration and user API.
+
+Counterpart of ``faster_whisper_tpu/transcribe.py`` for the sequential
+``WhisperModel.transcribe``: the seek loop over 30 s windows, language
+detection, prompts, the temperature-fallback ladder and the split of
+decoded tokens into timestamped segments, with the reference's decode
+policy reproduced as the JAX package reproduces it.  Log-mel runs on the
+host; each window is sliced on the device and goes through the encoder
+(kernel K3 on the card) and the decode loop (kernel K1 on the card).
+
+Not ported yet, and refused with ``NotImplementedError`` naming the
+ROADMAP item: loading checkpoints, audio decoding from files, VAD,
+word timestamps and the int8/int4 compute types.  ``BatchedInferencePipeline``
+is not ported either.
+"""
+
+import logging
+import zlib
+
+from dataclasses import dataclass
+from typing import Iterable, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from faster_whisper_tpu_torch.audio import pad_or_trim
+from faster_whisper_tpu_torch.feature_extractor import FeatureExtractor
+from faster_whisper_tpu_torch.ops.mel import extract_window
+from faster_whisper_tpu_torch.tokenizer import _LANGUAGE_CODES, Tokenizer
+from faster_whisper_tpu_torch.utils import format_timestamp, get_logger, resolve_device
+
+_NOT_PORTED = "not ported to the PyTorch package yet (ROADMAP.md, Queue 1 item {})"
+
+
+@dataclass
+class Segment:
+    id: int
+    seek: int
+    start: float
+    end: float
+    text: str
+    tokens: List[int]
+    avg_logprob: float
+    compression_ratio: float
+    no_speech_prob: float
+    words: Optional[list]
+    temperature: Optional[float]
+
+
+@dataclass
+class TranscriptionOptions:
+    beam_size: int
+    best_of: int
+    patience: float
+    length_penalty: float
+    repetition_penalty: float
+    no_repeat_ngram_size: int
+    log_prob_threshold: Optional[float]
+    no_speech_threshold: Optional[float]
+    compression_ratio_threshold: Optional[float]
+    condition_on_previous_text: bool
+    prompt_reset_on_temperature: float
+    temperatures: List[float]
+    initial_prompt: Optional[Union[str, Iterable[int]]]
+    prefix: Optional[str]
+    suppress_blank: bool
+    suppress_tokens: Optional[List[int]]
+    without_timestamps: bool
+    max_initial_timestamp: float
+    multilingual: bool
+    max_new_tokens: Optional[int]
+    clip_timestamps: Union[str, List[float]]
+    hotwords: Optional[str]
+
+
+@dataclass
+class TranscriptionInfo:
+    language: str
+    language_probability: float
+    duration: float
+    duration_after_vad: float
+    all_language_probs: Optional[List[Tuple[str, float]]]
+    transcription_options: TranscriptionOptions
+
+
+# compute_type -> parameter dtype on the card (bf16 where GPUs' CT2 uses fp16)
+_COMPUTE_TYPES = {
+    "default": torch.bfloat16,
+    "auto": torch.bfloat16,
+    "float16": torch.bfloat16,
+    "bfloat16": torch.bfloat16,
+    "float32": torch.float32,
+}
+
+
+class WhisperModel:
+    def __init__(self, model_size_or_path: str, *args, **kwargs):
+        raise NotImplementedError(
+            "loading checkpoints is " + _NOT_PORTED.format(1)
+            + "; build the model with WhisperModel.from_parts"
+        )
+
+    @classmethod
+    def from_parts(
+        cls,
+        params,
+        config,
+        hf_tokenizer,
+        feature_extractor_kwargs: Optional[dict] = None,
+        compute_type: str = "default",
+        device="cuda",
+    ) -> "WhisperModel":
+        """Build a WhisperModel from in-memory pieces: a parameter tree
+        (``models/load.py``), its config and a base tokenizer.  The
+        parameters are moved to ``device`` (default the card; without one
+        this raises) and cast to the compute type's dtype; the card's
+        kernels take bfloat16."""
+        from faster_whisper_tpu_torch.models.engine import WhisperEngine
+
+        if compute_type.startswith("int8"):
+            raise NotImplementedError(f"compute_type={compute_type!r} is " + _NOT_PORTED.format(8))
+        if compute_type == "int4":
+            raise NotImplementedError("compute_type='int4' is " + _NOT_PORTED.format(10))
+        if compute_type not in _COMPUTE_TYPES:
+            raise ValueError(f"unsupported compute_type: {compute_type}")
+        dev = resolve_device(device)
+        dtype = _COMPUTE_TYPES[compute_type]
+        if dev.type == "cuda" and dtype != torch.bfloat16:
+            raise NotImplementedError(
+                f"compute_type={compute_type!r} on the card: the CUDA kernels take bfloat16"
+            )
+
+        def move(tree):
+            if isinstance(tree, dict):
+                return {k: move(v) for k, v in tree.items()}
+            return tree.to(device=dev, dtype=dtype)
+
+        self = cls.__new__(cls)
+        self.logger = get_logger()
+        self.hf_tokenizer = hf_tokenizer
+        self.model = WhisperEngine(move(params), config, hf_tokenizer)
+        kwargs = dict(feature_extractor_kwargs or {})
+        kwargs.setdefault("feature_size", config.n_mels)
+        self.feature_extractor = FeatureExtractor(**kwargs)
+        self.input_stride = 2
+        self.frames_per_second = (
+            self.feature_extractor.sampling_rate // self.feature_extractor.hop_length
+        )
+        self.time_precision = 0.02
+        self.max_length = 448
+        return self
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    @property
+    def supported_languages(self) -> List[str]:
+        return list(_LANGUAGE_CODES) if self.model.is_multilingual else ["en"]
+
+    # ------------------------------------------------------------------
+    # Sequential transcription
+    # ------------------------------------------------------------------
+
+    def transcribe(
+        self,
+        audio: np.ndarray,
+        language: Optional[str] = None,
+        task: str = "transcribe",
+        log_progress: bool = False,
+        beam_size: int = 5,
+        best_of: int = 5,
+        patience: float = 1,
+        length_penalty: float = 1,
+        repetition_penalty: float = 1,
+        no_repeat_ngram_size: int = 0,
+        temperature: Union[float, List[float], Tuple[float, ...]] = [
+            0.0, 0.2, 0.4, 0.6, 0.8, 1.0,
+        ],
+        compression_ratio_threshold: Optional[float] = 2.4,
+        log_prob_threshold: Optional[float] = -1.0,
+        no_speech_threshold: Optional[float] = 0.6,
+        condition_on_previous_text: bool = True,
+        prompt_reset_on_temperature: float = 0.5,
+        initial_prompt: Optional[Union[str, Iterable[int]]] = None,
+        prefix: Optional[str] = None,
+        suppress_blank: bool = True,
+        suppress_tokens: Optional[List[int]] = [-1],
+        without_timestamps: bool = False,
+        max_initial_timestamp: float = 1.0,
+        word_timestamps: bool = False,
+        prepend_punctuations: str = "\"'“¿([{-",
+        append_punctuations: str = "\"'.。,，!！?？:：”)]}、",
+        multilingual: bool = False,
+        vad_filter: bool = False,
+        vad_parameters=None,
+        max_new_tokens: Optional[int] = None,
+        chunk_length: Optional[int] = None,
+        clip_timestamps: Union[str, List[float]] = "0",
+        hallucination_silence_threshold: Optional[float] = None,
+        hotwords: Optional[str] = None,
+        language_detection_threshold: Optional[float] = 0.5,
+        language_detection_segments: int = 1,
+    ) -> Tuple[Iterable[Segment], TranscriptionInfo]:
+        """Transcribe a float32 mono waveform at 16 kHz.
+
+        Same argument semantics as the JAX package's (and the reference's)
+        ``WhisperModel.transcribe``; returns (lazy generator over Segment,
+        TranscriptionInfo).  ``log_progress`` logs each window at INFO."""
+        if vad_filter:
+            raise NotImplementedError("vad_filter=True: the Silero VAD is " + _NOT_PORTED.format(9))
+        if word_timestamps:
+            raise NotImplementedError(
+                "word_timestamps=True: cross-attention alignment is " + _NOT_PORTED.format(6)
+            )
+        if not isinstance(audio, np.ndarray):
+            raise TypeError(
+                "audio must be a float32 numpy array at 16 kHz: audio decoding is "
+                + _NOT_PORTED.format(7)
+            )
+        sampling_rate = self.feature_extractor.sampling_rate
+
+        if multilingual and not self.model.is_multilingual:
+            self.logger.warning(
+                "The current model is English-only but the multilingual parameter is"
+                " set to True; setting to False instead."
+            )
+            multilingual = False
+
+        duration = audio.shape[0] / sampling_rate
+        self.logger.info("Processing audio with duration %s", format_timestamp(duration))
+
+        features = self.feature_extractor(audio, chunk_length=chunk_length)
+
+        all_language_probs = None
+        if language is None:
+            if not self.model.is_multilingual:
+                language = "en"
+                language_probability = 1
+            else:
+                start_timestamp = (
+                    float(clip_timestamps.split(",")[0])
+                    if isinstance(clip_timestamps, str)
+                    else clip_timestamps[0]
+                )
+                content_frames = features.shape[-1] - 1
+                seek = (
+                    int(start_timestamp * self.frames_per_second)
+                    if start_timestamp * self.frames_per_second < content_frames
+                    else 0
+                )
+                (
+                    language,
+                    language_probability,
+                    all_language_probs,
+                ) = self.detect_language(
+                    features=features[..., seek:],
+                    language_detection_segments=language_detection_segments,
+                    language_detection_threshold=language_detection_threshold,
+                )
+                self.logger.info(
+                    "Detected language '%s' with probability %.2f",
+                    language,
+                    language_probability,
+                )
+        else:
+            if not self.model.is_multilingual and language != "en":
+                self.logger.warning(
+                    "The current model is English-only but the language parameter is"
+                    " set to '%s'; using 'en' instead." % language
+                )
+                language = "en"
+            language_probability = 1
+
+        tokenizer = Tokenizer(
+            self.hf_tokenizer, self.model.is_multilingual, task=task, language=language
+        )
+
+        options = TranscriptionOptions(
+            beam_size=beam_size,
+            best_of=best_of,
+            patience=patience,
+            length_penalty=length_penalty,
+            repetition_penalty=repetition_penalty,
+            no_repeat_ngram_size=no_repeat_ngram_size,
+            log_prob_threshold=log_prob_threshold,
+            no_speech_threshold=no_speech_threshold,
+            compression_ratio_threshold=compression_ratio_threshold,
+            condition_on_previous_text=condition_on_previous_text,
+            prompt_reset_on_temperature=prompt_reset_on_temperature,
+            temperatures=(
+                temperature if isinstance(temperature, (list, tuple)) else [temperature]
+            ),
+            initial_prompt=initial_prompt,
+            prefix=prefix,
+            suppress_blank=suppress_blank,
+            suppress_tokens=(
+                get_suppressed_tokens(tokenizer, suppress_tokens)
+                if suppress_tokens
+                else suppress_tokens
+            ),
+            without_timestamps=without_timestamps,
+            max_initial_timestamp=max_initial_timestamp,
+            multilingual=multilingual,
+            max_new_tokens=max_new_tokens,
+            clip_timestamps=clip_timestamps,
+            hotwords=hotwords,
+        )
+
+        segments = self.generate_segments(features, tokenizer, options, log_progress)
+
+        info = TranscriptionInfo(
+            language=language,
+            language_probability=language_probability,
+            duration=duration,
+            duration_after_vad=duration,
+            transcription_options=options,
+            all_language_probs=all_language_probs,
+        )
+        return segments, info
+
+    def _split_segments_by_timestamps(
+        self,
+        tokenizer: Tokenizer,
+        tokens: List[int],
+        time_offset: float,
+        segment_size: int,
+        segment_duration: float,
+        seek: int,
+    ):
+        current_segments = []
+        tsb = tokenizer.timestamp_begin
+        single_timestamp_ending = len(tokens) >= 2 and tokens[-2] < tsb <= tokens[-1]
+
+        # indices where two timestamps are adjacent (segment boundaries)
+        consecutive = [
+            i for i in range(1, len(tokens)) if tokens[i] >= tsb and tokens[i - 1] >= tsb
+        ]
+
+        if consecutive:
+            slices = list(consecutive)
+            if single_timestamp_ending:
+                slices.append(len(tokens))
+
+            last_slice = 0
+            for current_slice in slices:
+                sliced = tokens[last_slice:current_slice]
+                start_pos = sliced[0] - tsb
+                end_pos = sliced[-1] - tsb
+                current_segments.append(
+                    dict(
+                        seek=seek,
+                        start=time_offset + start_pos * self.time_precision,
+                        end=time_offset + end_pos * self.time_precision,
+                        tokens=sliced,
+                    )
+                )
+                last_slice = current_slice
+
+            if single_timestamp_ending:
+                # no speech after the last timestamp: advance a full window
+                seek += segment_size
+            else:
+                # drop the unfinished tail, seek to the last timestamp
+                last_pos = tokens[last_slice - 1] - tsb
+                seek += last_pos * self.input_stride
+        else:
+            duration = segment_duration
+            timestamps = [t for t in tokens if t >= tsb]
+            if timestamps and timestamps[-1] != tsb:
+                duration = (timestamps[-1] - tsb) * self.time_precision
+
+            current_segments.append(
+                dict(seek=seek, start=time_offset, end=time_offset + duration, tokens=tokens)
+            )
+            seek += segment_size
+
+        return current_segments, seek, single_timestamp_ending
+
+    def generate_segments(
+        self,
+        features: np.ndarray,
+        tokenizer: Tokenizer,
+        options: TranscriptionOptions,
+        log_progress: bool = False,
+    ) -> Iterable[Segment]:
+        """The sequential seek loop: one encode and one fallback ladder per
+        30 s window, yielding segments as they are decoded."""
+        content_frames = features.shape[-1] - 1
+        nb_max_frames = self.feature_extractor.nb_max_frames
+
+        if isinstance(options.clip_timestamps, str):
+            options.clip_timestamps = [
+                float(ts)
+                for ts in (options.clip_timestamps.split(",") if options.clip_timestamps else [])
+            ]
+        seek_points: List[int] = [
+            round(ts * self.frames_per_second) for ts in options.clip_timestamps
+        ]
+        if len(seek_points) == 0:
+            seek_points.append(0)
+        if len(seek_points) % 2 == 1:
+            seek_points.append(content_frames)
+        seek_clips: List[Tuple[int, int]] = list(zip(seek_points[::2], seek_points[1::2]))
+
+        idx = 0
+        clip_idx = 0
+        seek = seek_clips[clip_idx][0]
+        all_tokens = []
+        prompt_reset_since = 0
+
+        if options.initial_prompt is not None:
+            if isinstance(options.initial_prompt, str):
+                all_tokens.extend(tokenizer.encode(" " + options.initial_prompt.strip()))
+            else:
+                all_tokens.extend(options.initial_prompt)
+
+        # Features go to the device once; every window is a slice there.
+        features_padded = torch.as_tensor(
+            np.pad(features, ((0, 0), (0, nb_max_frames))), device=self.device
+        )
+
+        while clip_idx < len(seek_clips):
+            seek_clip_start, seek_clip_end = seek_clips[clip_idx]
+            if seek_clip_end > content_frames:
+                seek_clip_end = content_frames
+            if seek < seek_clip_start:
+                seek = seek_clip_start
+            if seek >= seek_clip_end:
+                clip_idx += 1
+                if clip_idx < len(seek_clips):
+                    seek = seek_clips[clip_idx][0]
+                continue
+
+            time_offset = seek * self.feature_extractor.time_per_frame
+            segment_size = min(nb_max_frames, content_frames - seek, seek_clip_end - seek)
+            segment_duration = segment_size * self.feature_extractor.time_per_frame
+            segment = extract_window(features_padded, seek, segment_size, nb_max_frames)
+
+            if log_progress or self.logger.isEnabledFor(logging.DEBUG):
+                self.logger.log(
+                    logging.INFO if log_progress else logging.DEBUG,
+                    "Processing segment at %s", format_timestamp(time_offset),
+                )
+
+            previous_tokens = all_tokens[prompt_reset_since:]
+            encoder_output = self.encode(segment)
+
+            if options.multilingual:
+                results = self.model.detect_language(encoder_output)
+                language_token, language_probability = results[0][0]
+                language = language_token[2:-2]
+                tokenizer.language = tokenizer.tokenizer.token_to_id(language_token)
+                tokenizer.language_code = language
+
+            prompt = self.get_prompt(
+                tokenizer,
+                previous_tokens,
+                without_timestamps=options.without_timestamps,
+                prefix=options.prefix if seek == 0 else None,
+                hotwords=options.hotwords,
+            )
+
+            (
+                result,
+                avg_logprob,
+                temperature,
+                compression_ratio,
+            ) = self.generate_with_fallback(encoder_output, prompt, tokenizer, options)
+
+            if options.no_speech_threshold is not None:
+                should_skip = result.no_speech_prob > options.no_speech_threshold
+                if (
+                    options.log_prob_threshold is not None
+                    and avg_logprob > options.log_prob_threshold
+                ):
+                    # confident text despite high no-speech probability
+                    should_skip = False
+
+                if should_skip:
+                    self.logger.debug(
+                        "No speech threshold is met (%f > %f)",
+                        result.no_speech_prob,
+                        options.no_speech_threshold,
+                    )
+                    seek += segment_size
+                    continue
+
+            tokens = result.sequences_ids[0]
+            previous_seek = seek
+
+            current_segments, seek, _single_ending = self._split_segments_by_timestamps(
+                tokenizer=tokenizer,
+                tokens=tokens,
+                time_offset=time_offset,
+                segment_size=segment_size,
+                segment_duration=segment_duration,
+                seek=seek,
+            )
+
+            for segment_d in current_segments:
+                tokens = segment_d["tokens"]
+                text = tokenizer.decode(tokens)
+
+                if segment_d["start"] == segment_d["end"] or not text.strip():
+                    continue
+
+                all_tokens.extend(tokens)
+                idx += 1
+
+                yield Segment(
+                    id=idx,
+                    seek=previous_seek,
+                    start=segment_d["start"],
+                    end=segment_d["end"],
+                    text=text,
+                    tokens=tokens,
+                    temperature=temperature,
+                    avg_logprob=avg_logprob,
+                    compression_ratio=compression_ratio,
+                    no_speech_prob=result.no_speech_prob,
+                    words=None,
+                )
+
+            if (
+                not options.condition_on_previous_text
+                or temperature > options.prompt_reset_on_temperature
+            ):
+                if options.condition_on_previous_text:
+                    self.logger.debug(
+                        "Reset prompt. prompt_reset_on_temperature threshold is met"
+                        " %f > %f",
+                        temperature,
+                        options.prompt_reset_on_temperature,
+                    )
+                prompt_reset_since = len(all_tokens)
+
+    def encode(self, features) -> torch.Tensor:
+        """Mel window(s) -> encoder states on the model's device."""
+        return self.model.encode(features)
+
+    def generate_with_fallback(
+        self,
+        encoder_output,
+        prompt: List[int],
+        tokenizer: Tokenizer,
+        options: TranscriptionOptions,
+    ):
+        """The temperature-fallback ladder: decode at each temperature in
+        turn until the result passes the compression-ratio and log-prob
+        tests.  Once a rung has failed and every remaining rung samples,
+        the remaining rungs run as one batched call (a row per rung, each
+        with its own temperature and generator), which picks the same
+        result as running them in turn."""
+        decode_result = None
+        all_results = []
+        below_cr_threshold_results = []
+
+        max_initial_timestamp_index = int(
+            round(options.max_initial_timestamp / self.time_precision)
+        )
+        if options.max_new_tokens is not None:
+            max_length = len(prompt) + options.max_new_tokens
+        else:
+            max_length = self.max_length
+
+        if max_length > self.max_length:
+            raise ValueError(
+                f"The length of the prompt is {len(prompt)}, and the `max_new_tokens` "
+                f"{max_length - len(prompt)}. Thus, the combined length of the prompt "
+                f"and `max_new_tokens` is: {max_length}. This exceeds the "
+                f"`max_length` of the Whisper model: {self.max_length}. "
+                "You should either reduce the length of your prompt, or "
+                "reduce the value of `max_new_tokens`, "
+                f"so that their combined length is less that {self.max_length}."
+            )
+
+        base_kwargs = dict(
+            length_penalty=options.length_penalty,
+            repetition_penalty=options.repetition_penalty,
+            no_repeat_ngram_size=options.no_repeat_ngram_size,
+            max_length=max_length,
+            suppress_blank=options.suppress_blank,
+            suppress_tokens=options.suppress_tokens,
+            max_initial_timestamp_index=max_initial_timestamp_index,
+        )
+
+        def rung_results():
+            """Yield (result, temperature) in ladder order, lazily."""
+            temps = list(options.temperatures)
+            for i, temperature in enumerate(temps):
+                tail = temps[i:]
+                if len(tail) > 1 and all(t > 0 for t in tail) and encoder_output.shape[0] == 1:
+                    n = len(tail)
+                    results = self.model.generate(
+                        encoder_output.expand((n,) + tuple(encoder_output.shape[1:])),
+                        [prompt] * n,
+                        **base_kwargs,
+                        beam_size=1,
+                        num_hypotheses=options.best_of,
+                        sampling_topk=0,
+                        sampling_temperature=list(tail),
+                    )
+                    yield from zip(results, tail)
+                    return
+                if temperature > 0:
+                    kwargs = {
+                        "beam_size": 1,
+                        "num_hypotheses": options.best_of,
+                        "sampling_topk": 0,
+                        "sampling_temperature": temperature,
+                    }
+                else:
+                    kwargs = {"beam_size": options.beam_size, "patience": options.patience}
+                yield self.model.generate(
+                    encoder_output, [prompt], **base_kwargs, **kwargs
+                )[0], temperature
+
+        temperature = options.temperatures[-1]
+        for result, temperature in rung_results():
+            tokens = result.sequences_ids[0]
+
+            # recover the length-normalized average log probability
+            seq_len = len(tokens)
+            cum_logprob = result.scores[0] * (seq_len ** options.length_penalty)
+            avg_logprob = cum_logprob / (seq_len + 1)
+
+            text = tokenizer.decode(tokens).strip()
+            compression_ratio = get_compression_ratio(text)
+
+            decode_result = (result, avg_logprob, temperature, compression_ratio)
+            all_results.append(decode_result)
+
+            needs_fallback = False
+
+            if options.compression_ratio_threshold is not None:
+                if compression_ratio > options.compression_ratio_threshold:
+                    needs_fallback = True  # too repetitive
+                    self.logger.debug(
+                        "Compression ratio threshold is not met with temperature %.1f"
+                        " (%f > %f)",
+                        temperature,
+                        compression_ratio,
+                        options.compression_ratio_threshold,
+                    )
+                else:
+                    below_cr_threshold_results.append(decode_result)
+
+            if (
+                options.log_prob_threshold is not None
+                and avg_logprob < options.log_prob_threshold
+            ):
+                needs_fallback = True  # average log probability too low
+                self.logger.debug(
+                    "Log probability threshold is not met with temperature %.1f"
+                    " (%f < %f)",
+                    temperature,
+                    avg_logprob,
+                    options.log_prob_threshold,
+                )
+
+            if (
+                options.no_speech_threshold is not None
+                and result.no_speech_prob > options.no_speech_threshold
+                and options.log_prob_threshold is not None
+                and avg_logprob < options.log_prob_threshold
+            ):
+                needs_fallback = False  # silence: no point falling back
+
+            if not needs_fallback:
+                break
+        else:
+            # every temperature failed: pick the best average log probability
+            decode_result = max(below_cr_threshold_results or all_results, key=lambda x: x[1])
+            # report the final temperature for prompt_reset_on_temperature
+            decode_result = (decode_result[0], decode_result[1], temperature, decode_result[3])
+
+        return decode_result
+
+    def get_prompt(
+        self,
+        tokenizer: Tokenizer,
+        previous_tokens: List[int],
+        without_timestamps: bool = False,
+        prefix: Optional[str] = None,
+        hotwords: Optional[str] = None,
+    ) -> List[int]:
+        prompt = []
+
+        if previous_tokens or (hotwords and not prefix):
+            prompt.append(tokenizer.sot_prev)
+            if hotwords and not prefix:
+                hotwords_tokens = tokenizer.encode(" " + hotwords.strip())
+                if len(hotwords_tokens) >= self.max_length // 2:
+                    hotwords_tokens = hotwords_tokens[: self.max_length // 2 - 1]
+                prompt.extend(hotwords_tokens)
+            if previous_tokens:
+                prompt.extend(previous_tokens[-(self.max_length // 2 - 1) :])
+
+        prompt.extend(tokenizer.sot_sequence)
+
+        if without_timestamps:
+            prompt.append(tokenizer.no_timestamps)
+
+        if prefix:
+            prefix_tokens = tokenizer.encode(" " + prefix.strip())
+            if len(prefix_tokens) >= self.max_length // 2:
+                prefix_tokens = prefix_tokens[: self.max_length // 2 - 1]
+            if not without_timestamps:
+                prompt.append(tokenizer.timestamp_begin)
+            prompt.extend(prefix_tokens)
+
+        return prompt
+
+    def detect_language(
+        self,
+        audio: Optional[np.ndarray] = None,
+        features: Optional[np.ndarray] = None,
+        language_detection_segments: int = 1,
+        language_detection_threshold: float = 0.5,
+    ) -> Tuple[str, float, List[Tuple[str, float]]]:
+        """Detect the language from audio or precomputed features.
+
+        Returns (language, probability, all_language_probs)."""
+        if audio is None and features is None:
+            raise ValueError("Either `audio` or `features` must be provided.")
+
+        if audio is not None:
+            audio = audio[: language_detection_segments * self.feature_extractor.n_samples]
+            features = self.feature_extractor(audio)
+
+        features = features[
+            ..., : language_detection_segments * self.feature_extractor.nb_max_frames
+        ]
+
+        detected_language_info = {}
+        all_language_probs = None
+        language = None
+        language_probability = 0.0
+        for i in range(0, features.shape[-1], self.feature_extractor.nb_max_frames):
+            encoder_output = self.encode(
+                pad_or_trim(features[..., i : i + self.feature_extractor.nb_max_frames])
+            )
+            results = self.model.detect_language(encoder_output)[0]
+            all_language_probs = [(token[2:-2], prob) for (token, prob) in results]
+            language, language_probability = all_language_probs[0]
+            if language_probability > language_detection_threshold:
+                break
+            detected_language_info.setdefault(language, []).append(language_probability)
+        else:
+            # majority vote across segments
+            language = max(
+                detected_language_info,
+                key=lambda lang: len(detected_language_info[lang]),
+            )
+            language_probability = max(detected_language_info[language])
+
+        return language, language_probability, all_language_probs
+
+
+def get_compression_ratio(text: str) -> float:
+    text_bytes = text.encode("utf-8")
+    return len(text_bytes) / len(zlib.compress(text_bytes))
+
+
+def get_suppressed_tokens(
+    tokenizer: Tokenizer,
+    suppress_tokens: Tuple[int],
+) -> Optional[List[int]]:
+    if -1 in suppress_tokens:
+        suppress_tokens = [t for t in suppress_tokens if t >= 0]
+        suppress_tokens.extend(tokenizer.non_speech_tokens)
+    elif suppress_tokens is None or len(suppress_tokens) == 0:
+        suppress_tokens = []
+    else:
+        if not isinstance(suppress_tokens, list):
+            raise TypeError("suppress_tokens must be a list")
+        suppress_tokens = list(suppress_tokens)
+
+    suppress_tokens.extend(
+        [
+            tokenizer.transcribe,
+            tokenizer.translate,
+            tokenizer.sot,
+            tokenizer.sot_prev,
+            tokenizer.sot_lm,
+            tokenizer.no_speech,
+        ]
+    )
+
+    return tuple(sorted(set(suppress_tokens)))

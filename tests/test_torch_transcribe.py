@@ -1,0 +1,133 @@
+"""``WhisperModel.transcribe`` of the port against the JAX package's on a
+45 s clip synthesized with numpy from a seed, over the same float32 micro
+model and the same synthetic vocabulary.  Text, tokens and start/end must
+be equal and ``avg_logprob`` within 1e-4 (float32 sums of log-probs over a
+few dozen tokens, taken in another order).  The JAX side runs with
+FWT_CACHE_ARTIFACTS=/nonexistent, so no shipped compile-cache entry takes
+part."""
+
+import numpy as np
+import pytest
+
+import jax
+import torch  # noqa: F401  (test files import both frameworks)
+
+from faster_whisper_tpu.models.config import tiny_test_config as jax_config
+from faster_whisper_tpu.models.load import random_params as jax_random_params
+from faster_whisper_tpu.testing import build_synthetic_tokenizer as jax_tokenizer
+from faster_whisper_tpu.transcribe import WhisperModel as JaxWhisperModel
+from faster_whisper_tpu_torch.models.config import tiny_test_config
+from faster_whisper_tpu_torch.models.load import params_from_jax
+from faster_whisper_tpu_torch.testing import build_synthetic_tokenizer
+from faster_whisper_tpu_torch.transcribe import WhisperModel
+
+LOGPROB_TOL = 1e-4
+
+
+def synth_audio(seconds: float, seed: int) -> np.ndarray:
+    """A tone that switches on and off over noise, 16 kHz float32."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000
+    gate = np.sin(2 * np.pi * 0.5 * t) > 0
+    x = 0.3 * np.sin(2 * np.pi * 220 * t) * gate + 0.05 * rng.standard_normal(t.size)
+    return x.astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def weights():
+    return jax_random_params(jax_config(), seed=0, dtype="float32")
+
+
+@pytest.fixture
+def models(weights, monkeypatch):
+    monkeypatch.setenv("FWT_CACHE_ARTIFACTS", "/nonexistent")
+    jm = JaxWhisperModel.from_parts(weights, jax_config(), jax_tokenizer())
+    pm = WhisperModel.from_parts(
+        params_from_jax(jax.tree.map(np.asarray, weights), device="cpu"),
+        tiny_test_config(),
+        build_synthetic_tokenizer(),
+        compute_type="float32",
+        device="cpu",
+    )
+    return jm, pm
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        dict(beam_size=5),  # language detection, timestamps
+        # In the micro vocabulary 1608 of 1865 tokens are specials (ids
+        # 257..1864: sot, languages, tasks, timestamps), and without the
+        # timestamp rules nothing keeps a random model off them; they are
+        # suppressed here so that the windows decode text.
+        dict(
+            beam_size=5, language="en", without_timestamps=True,
+            suppress_tokens=[-1] + list(range(257, 1865)),
+        ),
+        dict(beam_size=1, language="en"),
+    ],
+    ids=["beam5-detect", "beam5-no-timestamps", "greedy"],
+)
+def test_transcribe_segments_match_jax(models, kwargs):
+    jm, pm = models
+    audio = synth_audio(45.0, seed=1)
+    kwargs = dict(kwargs, temperature=0.0, max_new_tokens=48)
+    ref_segments, ref_info = jm.transcribe(audio, **kwargs)
+    ref_segments = list(ref_segments)
+    segments, info = pm.transcribe(audio, **kwargs)
+    segments = list(segments)
+
+    assert info.language == ref_info.language
+    assert info.language_probability == pytest.approx(ref_info.language_probability, abs=1e-5)
+    assert len(segments) == len(ref_segments) > 0
+    # the seek loop crossed into the second window
+    assert max(s.seek for s in segments) > 0
+    for s, r in zip(segments, ref_segments):
+        assert (s.id, s.seek, s.text, s.tokens) == (r.id, r.seek, r.text, r.tokens)
+        assert (s.start, s.end) == (r.start, r.end)
+        assert s.avg_logprob == pytest.approx(r.avg_logprob, abs=LOGPROB_TOL)
+        assert s.temperature == r.temperature
+        assert s.compression_ratio == pytest.approx(r.compression_ratio)
+
+
+def test_fallback_ladder_samples_and_yields_well_formed_segments(models):
+    _, pm = models
+    segments, info = pm.transcribe(synth_audio(20.0, seed=2), language="en", max_new_tokens=24)
+    segments = list(segments)
+    assert info.duration == pytest.approx(20.0)
+    assert [s.id for s in segments] == list(range(1, len(segments) + 1))
+    for s in segments:
+        assert s.tokens and 0.0 <= s.start <= s.end
+        assert s.temperature in (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
+
+
+def test_options_outside_the_slice_raise(models):
+    _, pm = models
+    audio = synth_audio(1.0, seed=3)
+    for kwargs in (dict(vad_filter=True), dict(word_timestamps=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            pm.transcribe(audio, **kwargs)
+    with pytest.raises(TypeError):
+        pm.transcribe("speech.flac")
+    for compute_type in ("int8", "int8_float16", "int4"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            WhisperModel.from_parts(
+                pm.model.params, tiny_test_config(), build_synthetic_tokenizer(),
+                compute_type=compute_type, device="cpu",
+            )
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        WhisperModel("large-v3")
+
+
+@pytest.mark.parametrize("base_vocab", [256, 50257])
+def test_pure_python_tokenizer_matches_tokenizers_library(base_vocab):
+    ours, ref = build_synthetic_tokenizer(base_vocab=base_vocab), jax_tokenizer(base_vocab=base_vocab)
+    assert ours.get_vocab_size() == ref.get_vocab_size()
+    for tok in ["<|endoftext|>", "<|yue|>", "<|notimestamps|>", "<|30.00|>", "<unused300>", "Ġ", "x", "none"]:
+        assert ours.token_to_id(tok) == ref.token_to_id(tok), tok
+    for text in [" hello world", "héllo ♪♪ 「」", " -", "\n\t x"]:
+        assert ours.encode(text).ids == ref.encode(text, add_special_tokens=False).ids
+    rng = np.random.default_rng(base_vocab)
+    for _ in range(100):
+        ids = rng.integers(0, min(base_vocab + 20, 2000), rng.integers(1, 30)).tolist()
+        assert ours.decode(ids) == ref.decode(ids), ids
