@@ -14,11 +14,15 @@ including the closing <|endoftext|> and ``gen_len`` excludes it.
 
 Layout:
   * Beams live on a (B, K) grid.  The cross-attention K/V over the encoder
-    states is computed once per window and shared across beams.
+    states is computed once per window and shared across beams; each
+    layer's cross-attention is kernel K4 on the card
+    (``ops/cross_attention.py``).
   * The per-beam self-attention cache is head-major (L, B, H, K, ctx, D)
     and append-only per slot: beam re-parenting permutes a (B, K, ctx)
     ancestry table, never the cache.  Each layer's append+attend is kernel
-    K1 on the card (``ops/beam_attention.py``).
+    K1 on the card (``ops/beam_attention.py``), K2 on the int8 cache.
+  * ``kv_int8`` (the int8 compute types) stores both caches as int8 codes
+    with bf16 scales (``ops/quant.py::QuantKV``).
   * Tokens are recorded per step in position-history tables and the
     hypotheses rebuilt on the host by walking back-pointers.
 """
@@ -46,6 +50,8 @@ from faster_whisper_tpu_torch.models.model import (
     layer_norm,
 )
 from faster_whisper_tpu_torch.ops.beam_attention import beam_attend_append
+from faster_whisper_tpu_torch.ops.cross_attention import cross_attend
+from faster_whisper_tpu_torch.ops.quant import QuantKV, quantize_kv
 
 
 @dataclass(frozen=True)
@@ -56,6 +62,7 @@ class GenOptions:
     sampling_topk: int = 0  # 0 = unrestricted
     # Cache and buffer length: a bucketed bound on max_length (<= 448).
     ctx_cap: int = 448
+    kv_int8: bool = False  # int8 self and cross caches (QuantKV)
 
 
 class WhisperGenerationResult:
@@ -86,23 +93,22 @@ def _gen_decoder_step(
     token: torch.Tensor,  # (B, K) token ids
     pos: torch.Tensor,  # (B, K) absolute positions
     pos_row: torch.Tensor,  # (B,) int32 per-row write position
-    self_k: torch.Tensor,  # (L, B, H, K, ctx, D), updated in place
-    self_v: torch.Tensor,
-    cross_k: torch.Tensor,  # (L, B, H, T, D) f32, shared across beams
-    cross_v: torch.Tensor,
+    self_k,  # (L, B, H, K, ctx, D) or QuantKV, updated in place
+    self_v,
+    cross_k,  # (L, B, H, T, D) or QuantKV, shared across beams
+    cross_v,
     anc: torch.Tensor,  # (B, K, ctx) int32 ancestry slot map
 ):
     """One decode step over the beam grid; returns (logits (B, K, V) f32,
-    self_k, self_v).  Self-attention is one ``beam_attend_append`` per
-    layer (K1 on the card); cross-attention stays two plain matmuls with
-    f32 scores, as the JAX package left it to XLA.  Counts its calls in
+    self_k, self_v).  Per layer, self-attention is one
+    ``beam_attend_append`` (K1, or K2 on the int8 cache, on the card) and
+    cross-attention one ``cross_attend`` (K4).  Counts its calls in
     ``_gen_decoder_step.calls``."""
     _gen_decoder_step.calls += 1
     dec = params["decoder"]
     b, k = token.shape
     n_head = config.n_text_head
     dh = config.n_text_state // n_head
-    scale = dh ** -0.5
     dtype = dec["token_embed"].dtype
 
     x = (dec["token_embed"][token] + dec["pos_embed"][pos]).to(dtype)  # (B, K, d)
@@ -131,11 +137,9 @@ def _gen_decoder_step(
 
         h = layer_norm(x, p["ln2_g"], p["ln2_b"])
         cp = p["cross_attn"]
-        qx = _dense(h, cp["wq"], cp["bq"]).reshape(b, k, n_head, dh)
-        scores = torch.einsum("bkhd,bhtd->bkht", qx.float(), cross_k[i]) * scale
-        w = torch.softmax(scores, dim=-1).to(dtype).float()
-        attn = torch.einsum("bkht,bhtd->bkhd", w, cross_v[i]).to(dtype)
-        x = x + _dense(attn.reshape(b, k, -1), cp["wo"], cp["bo"])
+        attn_h = cross_attend(i, heads(_dense(h, cp["wq"], cp["bq"])), cross_k, cross_v)
+        attn = attn_h.transpose(1, 2).reshape(b, k, -1)
+        x = x + _dense(attn, cp["wo"], cp["bo"])
 
         h = layer_norm(x, p["ln3_g"], p["ln3_b"])
         x = x + _mlp(p["mlp"], h)
@@ -174,19 +178,31 @@ def _tokens_view(hist_tok: torch.Tensor, anc: torch.Tensor) -> torch.Tensor:
     return torch.gather(hist_tok.transpose(1, 2), 1, anc.long())
 
 
-def _expand_caches(cache0, K: int):
+def _expand_caches(cache0, K: int, kv_int8: bool):
     """The prefill cache on the (B, K) beam grid: self K/V (L, B, H, ctx,
-    D) -> (L, B, H, K, ctx, D), contiguous for K1; the shared cross K/V in
-    f32 for the f32 cross-attention scores."""
+    D) -> (L, B, H, K, ctx, D), contiguous for K1/K2; the shared cross K/V
+    (L, B, H, T, D) stay in the model dtype.
 
-    def bcast(a):
+    With ``kv_int8`` both are quantized per (position, head) row over D:
+    the self caches become QuantKV with scales (L, B, H, K, ctx), the cross
+    caches QuantKV with scales (L, B, H, 1, T).  The scales are stored in
+    bf16, in float32 runs too, as the JAX package stores them."""
+
+    def bcast(a):  # (L, B, H, ...) -> (L, B, H, K, ...)
         return a[:, :, :, None].expand(a.shape[:3] + (K,) + a.shape[3:]).contiguous()
 
+    if not kv_int8:
+        return (
+            bcast(cache0.self_k), bcast(cache0.self_v), cache0.cross_k, cache0.cross_v,
+        )
+    sdt = torch.bfloat16
+    skq, svq = quantize_kv(cache0.self_k), quantize_kv(cache0.self_v)
+    ckq, cvq = quantize_kv(cache0.cross_k), quantize_kv(cache0.cross_v)
     return (
-        bcast(cache0.self_k),
-        bcast(cache0.self_v),
-        cache0.cross_k.float(),
-        cache0.cross_v.float(),
+        QuantKV(bcast(skq.q), bcast(skq.s.to(sdt))),
+        QuantKV(bcast(svq.q), bcast(svq.s.to(sdt))),
+        QuantKV(ckq.q, ckq.s.to(sdt)[:, :, :, None].contiguous()),
+        QuantKV(cvq.q, cvq.s.to(sdt)[:, :, :, None].contiguous()),
     )
 
 
@@ -238,7 +254,7 @@ def beam_search(
     first_logits, cache0, no_speech_prob = _prefill(
         params, config, meta, xa, prompt, prompt_len, sot_pos, ctx
     )
-    self_k, self_v, cross_k, cross_v = _expand_caches(cache0, K)
+    self_k, self_v, cross_k, cross_v = _expand_caches(cache0, K, gen_opts.kv_int8)
 
     k_arange = torch.arange(K, device=dev)
     ctx_ids = torch.arange(ctx, device=dev)
@@ -402,7 +418,7 @@ def sample(
     first_logits, cache0, no_speech_prob = _prefill(
         params, config, meta, xa, prompt, prompt_len, sot_pos, ctx
     )
-    self_k, self_v, cross_k, cross_v = _expand_caches(cache0, K)
+    self_k, self_v, cross_k, cross_v = _expand_caches(cache0, K, gen_opts.kv_int8)
 
     ctx_ids = torch.arange(ctx, device=dev)
     tokens = torch.zeros((b, K, ctx), dtype=torch.long, device=dev)
@@ -544,11 +560,13 @@ def generate_dispatch(
     num_hypotheses: int = 1,
     with_timestamps: bool = True,
     rng_seed: Optional[Union[int, Sequence[int]]] = None,
+    kv_int8: bool = False,
 ) -> PendingGeneration:
     """Run a generation on ``encoder_output``'s device and return its
     tensors; ``generate_collect`` unpacks them.  A per-row sequence of
     temperatures runs one sampling row per temperature (the batched
-    fallback ladder)."""
+    fallback ladder).  ``kv_int8`` decodes over int8 self and cross
+    caches."""
     b = len(prompts)
     if encoder_output.shape[0] != b:
         raise ValueError(f"{b} prompts for {encoder_output.shape[0]} encoder rows")
@@ -602,6 +620,7 @@ def generate_dispatch(
                 length_penalty=length_penalty,
                 sampling_topk=sampling_topk,
                 ctx_cap=ctx_cap,
+                kv_int8=kv_int8,
             )
             generators = []
             for seed in _row_seeds(rng_seed, b):
@@ -620,6 +639,7 @@ def generate_dispatch(
             num_finished=max(1, round(beam_size * patience)),
             length_penalty=length_penalty,
             ctx_cap=ctx_cap,
+            kv_int8=kv_int8,
         )
         arrays = beam_search(
             params, config, gen_opts, proc_opts, meta, encoder_output,

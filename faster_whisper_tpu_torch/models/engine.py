@@ -60,8 +60,13 @@ class WhisperEngine:
         config: WhisperConfig,
         hf_tokenizer=None,
         token_ids: Optional[dict] = None,
+        kv_int8: bool = False,
     ):
+        """``kv_int8`` decodes over int8 self and cross KV caches (the int8
+        compute types; ``params`` is then an int8 tree from
+        ``ops/quant.py::quantize_params``)."""
         self.params = params
+        self.kv_int8 = kv_int8
         self.config = config
         self.device = params["decoder"]["token_embed"].device
         if token_ids is None:
@@ -142,6 +147,7 @@ class WhisperEngine:
             num_hypotheses=num_hypotheses,
             with_timestamps=self.meta.no_timestamps not in prompts[0],
             rng_seed=rng_seed,
+            kv_int8=self.kv_int8,
         )
 
     def detect_language(self, encoder_output: torch.Tensor):

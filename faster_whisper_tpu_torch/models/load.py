@@ -18,6 +18,10 @@ with every matmul weight stored (in, out)::
     token_embed (V, d)      pos_embed (448, d)   # learned
     layers: ln1 + self_attn, ln2 + cross_attn, ln3 + mlp (same shapes)
     ln_g/ln_b (d,)
+    logits_w                                 # int8 trees only (ops/quant.py)
+
+In an int8 tree (``ops/quant.py::quantize_params``) every matmul weight of
+the layers is a ``QuantizedLinear`` (q int8, s float32).
 
 Checkpoint loaders (HF safetensors, CT2 model.bin) are not ported yet.
 """
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from faster_whisper_tpu_torch.models.config import WhisperConfig
+from faster_whisper_tpu_torch.ops.quant import QuantizedLinear, QuantKV
 from faster_whisper_tpu_torch.utils import resolve_device
 
 
@@ -136,10 +141,22 @@ def _to_tensor(a, device, dtype):
     return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
 
 
+_QUANT_LEAVES = {"QuantizedLinear": QuantizedLinear, "QuantKV": QuantKV}
+
+
 def params_from_jax(tree, device="cuda", dtype=None):
     """Carry a JAX parameter tree (arrays, or their numpy copies) across:
-    the same nested dict of tensors on ``device``, in ``dtype`` (default:
-    each leaf's own).  Only plain float trees: quantized int8/int4 trees are
-    not ported yet."""
+    the same nested dict of tensors on ``device``, float leaves in
+    ``dtype`` (default: each leaf's own).  The JAX package's
+    ``QuantizedLinear`` and ``QuantKV`` leaves (int8 trees) become the
+    port's NamedTuples of the same name, with ``q`` kept int8 and ``s`` in
+    its own dtype."""
     dev = resolve_device(device)
-    return _map_tree(lambda a: _to_tensor(a, dev, dtype), tree)
+
+    def convert(a):
+        cls = _QUANT_LEAVES.get(type(a).__name__)
+        if cls is not None:
+            return cls(*(_to_tensor(x, dev, None) for x in a))
+        return _to_tensor(a, dev, dtype)
+
+    return _map_tree(convert, tree)

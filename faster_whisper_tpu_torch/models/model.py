@@ -6,8 +6,10 @@ the layers run in a Python loop over views of that axis.  Matmuls run in
 the parameter dtype (bf16 on the card) with f32 where the JAX package asks
 for it: layernorm statistics, attention scores and softmax, and the final
 logits.  Encoder self-attention goes through ``mha_full`` (kernel K3 on the
-card); decode self-attention lives in ``generation/generate.py`` (kernel
-K1).
+card); decode self- and cross-attention live in ``generation/generate.py``
+(kernels K1/K2 and K4).  In an int8 tree (``ops/quant.py``) every layer
+matmul is a W8A8 ``int8_dense`` and the logits use the int8 head
+``decoder.logits_w``.
 """
 
 from typing import NamedTuple, Tuple
@@ -18,6 +20,7 @@ import torch.nn.functional as F
 
 from faster_whisper_tpu_torch.models.config import WhisperConfig
 from faster_whisper_tpu_torch.ops.attention import mha_full, mha_hmajor
+from faster_whisper_tpu_torch.ops.quant import QuantizedLinear, int8_dense
 
 
 def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float = 1e-5):
@@ -30,6 +33,8 @@ def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float = 1
 
 
 def _dense(x, w, b=None):
+    if isinstance(w, QuantizedLinear):
+        return int8_dense(x, w, b)
     y = torch.matmul(x, w)
     if b is not None:
         y = y + b
@@ -47,9 +52,13 @@ def _merge_heads(x):
 
 
 def _layer(tree, i):
-    """Views of layer ``i`` of a stacked parameter subtree."""
+    """Views of layer ``i`` of a stacked parameter subtree.  A
+    QuantizedLinear is sliced field by field (``tree[i]`` on the NamedTuple
+    would pick its field i)."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
+    if isinstance(tree, QuantizedLinear):
+        return QuantizedLinear(tree.q[i], tree.s[i])
     return tree[i]
 
 
@@ -137,8 +146,13 @@ class KVCache(NamedTuple):
 
 
 def _logits(params, x):
-    """Tied-embedding output projection, in f32."""
+    """Tied-embedding output projection, in f32.  An int8 tree carries its
+    own transposed int8 head ``logits_w``, whose padding columns are
+    sliced off here."""
     embed = params["decoder"]["token_embed"]
+    lw = params["decoder"].get("logits_w")
+    if lw is not None:
+        return int8_dense(x, lw, out_dtype=torch.float32)[..., : embed.shape[0]]
     return torch.matmul(x.float(), embed.float().t())
 
 

@@ -9,9 +9,15 @@ ancestry mask ``anc[b, k, c] == j AND c <= pos`` with one joint softmax
 ``anc[b, k, c]``, so beam re-parenting permutes ``anc`` and never the
 cache).
 
-``beam_attend_append`` runs the hand-written CUDA kernel K1
-(``csrc/beam_attention.cu``) on CUDA tensors and its plain version
-``beam_attend_append_ref`` on CPU tensors.
+The cache is either raw (bf16 on the card) or int8 (``QuantKV``: codes
+(L, B, H, K, ctx, D) int8 and per-row scales (L, B, H, K, ctx), bf16 on
+the card).  On the int8 cache the step's K/V are quantized per (beam,
+head) row (scale max|x|/127, stored in the scale dtype) before they are
+written, and the scales fold into the scores and the PV weights.
+
+``beam_attend_append`` runs the hand-written CUDA kernels K1 (raw cache)
+and K2 (int8 cache) of ``csrc/beam_attention.cu`` on CUDA tensors and
+their plain version ``beam_attend_append_ref`` on CPU tensors.
 
 Unlike the JAX functions, both update the cache tensors IN PLACE (the TPU
 kernel aliased them too, but JAX returns new arrays); they return the same
@@ -23,6 +29,7 @@ from typing import Optional
 import torch
 
 from faster_whisper_tpu_torch.ops import _build
+from faster_whisper_tpu_torch.ops.quant import QuantKV, quantize_kv
 
 NEG_INF = -1e30
 
@@ -33,20 +40,22 @@ def beam_attend_append(
     q: torch.Tensor,  # (B, H, K, D)
     k_new: torch.Tensor,  # (B, H, K, D)
     v_new: torch.Tensor,
-    self_k: torch.Tensor,  # (L, B, H, K, ctx, D), updated in place
-    self_v: torch.Tensor,
+    self_k,  # (L, B, H, K, ctx, D) or QuantKV; updated in place
+    self_v,
     anc: torch.Tensor,  # (B, K, ctx) int32
     *,
     pos_bk: Optional[torch.Tensor] = None,  # (B, K) per-beam positions
 ):
     """Returns (attn (B, H, K, D) in q.dtype, self_k, self_v).
 
-    On a CUDA tensor: K1, launched on the current stream and counted in
-    ``beam_attend_append.launches``; it writes every beam at ``pos_row``
-    and ignores ``pos_bk``, which differs from the plain version only in
-    the slots of finished sampling beams, whose outputs are never read (as
-    with the TPU kernel).  Requires ``0 <= pos_row < ctx``.  On a CPU
-    tensor: ``beam_attend_append_ref``, which honours ``pos_bk``."""
+    On a CUDA tensor: K1 (raw bf16 cache) or K2 (``QuantKV`` cache, int8
+    codes and bf16 scales), launched on the current stream and counted in
+    ``beam_attend_append.launches`` (K1) or ``.launches_int8`` (K2); both
+    write every beam at ``pos_row`` and ignore ``pos_bk``, which differs
+    from the plain version only in the slots of finished sampling beams,
+    whose outputs are never read (as with the TPU kernels).  Requires
+    ``0 <= pos_row < ctx``.  On a CPU tensor: ``beam_attend_append_ref``,
+    which honours ``pos_bk``."""
     if not q.is_cuda:
         if q.device.type != "cpu":
             raise ValueError(f"beam_attend_append: no path for device {q.device}")
@@ -54,19 +63,36 @@ def beam_attend_append(
             layer, pos_row, q, k_new, v_new, self_k, self_v, anc, pos_bk=pos_bk
         )
 
+    quant = isinstance(self_k, QuantKV)
     b, h, k, d = q.shape
-    if self_k.dim() != 6:
-        raise ValueError(f"beam_attend_append: cache must be (L,B,H,K,ctx,D), got {tuple(self_k.shape)}")
-    n_layer, ctx = self_k.shape[0], self_k.shape[4]
-    for name, t, shape, dtype in (
-        ("q", q, (b, h, k, d), torch.bfloat16),
-        ("k_new", k_new, (b, h, k, d), torch.bfloat16),
-        ("v_new", v_new, (b, h, k, d), torch.bfloat16),
-        ("self_k", self_k, (n_layer, b, h, k, ctx, d), torch.bfloat16),
-        ("self_v", self_v, (n_layer, b, h, k, ctx, d), torch.bfloat16),
+    codes_k = self_k.q if quant else self_k
+    if codes_k.dim() != 6:
+        raise ValueError(
+            f"beam_attend_append: cache must be (L,B,H,K,ctx,D), got {tuple(codes_k.shape)}"
+        )
+    n_layer, ctx = codes_k.shape[0], codes_k.shape[4]
+    cache_shape = (n_layer, b, h, k, ctx, d)
+    bhk = (b, h, k, d)
+    checks = [
+        ("q", q, bhk, torch.bfloat16),
+        ("k_new", k_new, bhk, torch.bfloat16),
+        ("v_new", v_new, bhk, torch.bfloat16),
         ("anc", anc, (b, k, ctx), torch.int32),
         ("pos_row", pos_row, (b,), torch.int32),
-    ):
+    ]
+    if quant:
+        checks += [
+            ("self_k.q", self_k.q, cache_shape, torch.int8),
+            ("self_k.s", self_k.s, cache_shape[:5], torch.bfloat16),
+            ("self_v.q", self_v.q, cache_shape, torch.int8),
+            ("self_v.s", self_v.s, cache_shape[:5], torch.bfloat16),
+        ]
+    else:
+        checks += [
+            ("self_k", self_k, cache_shape, torch.bfloat16),
+            ("self_v", self_v, cache_shape, torch.bfloat16),
+        ]
+    for name, t, shape, dtype in checks:
         if t.device != q.device:
             raise ValueError(f"beam_attend_append: {name} is on {t.device}, q on {q.device}")
         if t.dtype != dtype:
@@ -75,26 +101,41 @@ def beam_attend_append(
             raise ValueError(f"beam_attend_append: {name} has shape {tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"beam_attend_append: {name} is not contiguous")
-    if d % 8 or d > 256:
-        raise ValueError(f"beam_attend_append: head dim {d} must be a multiple of 8, at most 256")
+    align = 16 if quant else 8  # one 16-byte load covers 16 int8 or 8 bf16 values
+    if d % align or d > 256:
+        raise ValueError(
+            f"beam_attend_append: head dim {d} must be a multiple of {align}, at most 256"
+        )
     if not 0 <= layer < n_layer:
         raise ValueError(f"beam_attend_append: layer {layer} outside [0, {n_layer})")
 
     lib = _build.load("beam_attention.cu")
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if quant:
+        rc = lib.fwt_beam_attend_append_int8(
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            self_k.q.data_ptr(), self_k.s.data_ptr(),
+            self_v.q.data_ptr(), self_v.s.data_ptr(), anc.data_ptr(),
+            pos_row.data_ptr(), out.data_ptr(),
+            b, h, k, ctx, d, int(layer), float(d) ** -0.5, stream,
+        )
+        _build.check(rc, "beam_attend_append (int8)")
+        beam_attend_append.launches_int8 += 1
+        return out, self_k, self_v
     rc = lib.fwt_beam_attend_append_bf16(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         self_k.data_ptr(), self_v.data_ptr(), anc.data_ptr(),
         pos_row.data_ptr(), out.data_ptr(),
-        b, h, k, ctx, d, int(layer), float(d) ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        b, h, k, ctx, d, int(layer), float(d) ** -0.5, stream,
     )
     _build.check(rc, "beam_attend_append")
     beam_attend_append.launches += 1
     return out, self_k, self_v
 
 
-beam_attend_append.launches = 0
+beam_attend_append.launches = 0  # K1
+beam_attend_append.launches_int8 = 0  # K2
 
 
 def beam_attend_append_ref(
@@ -103,18 +144,21 @@ def beam_attend_append_ref(
     q: torch.Tensor,  # (B, H, K, D)
     k_new: torch.Tensor,
     v_new: torch.Tensor,
-    self_k: torch.Tensor,  # (L, B, H, K, ctx, D), updated in place
-    self_v: torch.Tensor,
+    self_k,  # (L, B, H, K, ctx, D) or QuantKV; updated in place
+    self_v,
     anc: torch.Tensor,  # (B, K, ctx)
     *,
     pos_bk: Optional[torch.Tensor] = None,  # (B, K) per-beam positions
 ):
-    """The plain PyTorch version of K1 (``beam_attend_append_xla``).
+    """The plain PyTorch version of K1 and K2 (``beam_attend_append_xla``).
 
     ``pos_bk`` optionally carries per-(row, beam) positions: the sampling
-    path freezes finished beams at their own positions."""
+    path freezes finished beams at their own positions.  On an int8 cache
+    the new column is quantized, written with its scale rounded to the
+    scale dtype, and read back like every other column."""
+    quant = isinstance(self_k, QuantKV)
     b, h, k, d = q.shape
-    ctx = self_k.shape[4]
+    ctx = (self_k.q if quant else self_k).shape[4]
     dtype = q.dtype
     dev = q.device
     if pos_bk is None:
@@ -123,13 +167,24 @@ def beam_attend_append_ref(
 
     b_idx = torch.arange(b, device=dev)[:, None].expand(b, k)
     k_idx = torch.arange(k, device=dev)[None, :].expand(b, k)
-    sk, sv = self_k[layer], self_v[layer]  # (B, H, K, ctx, D) views
-    # index dims (B, K) come first, then the sliced H and the trailing D
-    sk[b_idx, :, k_idx, pos_bk] = k_new.transpose(1, 2).to(sk.dtype)
-    sv[b_idx, :, k_idx, pos_bk] = v_new.transpose(1, 2).to(sv.dtype)
+    # index dims (B, K) come first, then the sliced H (and the trailing D)
+    kn_bk, vn_bk = k_new.transpose(1, 2), v_new.transpose(1, 2)  # (B, K, H, D)
+    if quant:
+        for cache, new in ((self_k, kn_bk), (self_v, vn_bk)):
+            qn = quantize_kv(new)  # q (B, K, H, D), s (B, K, H)
+            cache.q[layer][b_idx, :, k_idx, pos_bk] = qn.q
+            cache.s[layer][b_idx, :, k_idx, pos_bk] = qn.s.to(cache.s.dtype)
+        sk, sv = self_k.q[layer], self_v.q[layer]  # (B, H, K, ctx, D) views
+        sks, svs = self_k.s[layer].float(), self_v.s[layer].float()  # (B, H, K, ctx)
+    else:
+        sk, sv = self_k[layer], self_v[layer]
+        sk[b_idx, :, k_idx, pos_bk] = kn_bk.to(sk.dtype)
+        sv[b_idx, :, k_idx, pos_bk] = vn_bk.to(sv.dtype)
 
     qs = (q.float() * d ** -0.5).to(dtype)
-    scores = torch.einsum("bhkd,bhjcd->bhkjc", qs.float(), sk.float())
+    scores = torch.einsum("bhkd,bhjcd->bhkjc", qs.float(), sk.to(dtype).float())
+    if quant:
+        scores = scores * sks[:, :, None]
     allow = torch.arange(ctx, device=dev)[None, None, :] <= pos_bk[:, :, None]
     sel = anc[:, :, None, :] == torch.arange(k, device=dev)[None, None, :, None]
     mask = sel & allow[:, :, None, :]  # (B, Kq, J, ctx)
@@ -137,5 +192,7 @@ def beam_attend_append_ref(
 
     w = torch.softmax(scores.reshape(b, h, k, k * ctx), dim=-1)
     w = w.reshape(b, h, k, k, ctx)
-    attn = torch.einsum("bhkjc,bhjcd->bhkd", w.to(dtype).float(), sv.float())
+    if quant:
+        w = w * svs[:, :, None]
+    attn = torch.einsum("bhkjc,bhjcd->bhkd", w.to(dtype).float(), sv.to(dtype).float())
     return attn.to(dtype), self_k, self_v

@@ -6,11 +6,12 @@ detection, prompts, the temperature-fallback ladder and the split of
 decoded tokens into timestamped segments, with the reference's decode
 policy reproduced as the JAX package reproduces it.  Log-mel runs on the
 host; each window is sliced on the device and goes through the encoder
-(kernel K3 on the card) and the decode loop (kernel K1 on the card).
+(kernel K3 on the card) and the decode loop (kernels K1 and K4 on the card;
+K2 and K4's int8 form on the int8 compute types, with W8A8 int8 weights).
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
 ROADMAP item: loading checkpoints, audio decoding from files, VAD,
-word timestamps and the int8/int4 compute types.  ``BatchedInferencePipeline``
+word timestamps and the int4 compute type.  ``BatchedInferencePipeline``
 is not ported either.
 """
 
@@ -83,20 +84,25 @@ class TranscriptionInfo:
     transcription_options: TranscriptionOptions
 
 
-# compute_type -> parameter dtype on the card (bf16 where GPUs' CT2 uses fp16)
+# compute_type -> activation dtype (bf16 where GPUs' CT2 uses fp16); the
+# int8 types add W8A8 int8 weights and int8 KV caches (ops/quant.py)
 _COMPUTE_TYPES = {
     "default": torch.bfloat16,
     "auto": torch.bfloat16,
     "float16": torch.bfloat16,
     "bfloat16": torch.bfloat16,
     "float32": torch.float32,
+    "int8": torch.bfloat16,
+    "int8_float16": torch.bfloat16,
+    "int8_bfloat16": torch.bfloat16,
+    "int8_float32": torch.float32,  # the CPU only: the card's kernels take bf16
 }
 
 
 class WhisperModel:
     def __init__(self, model_size_or_path: str, *args, **kwargs):
         raise NotImplementedError(
-            "loading checkpoints is " + _NOT_PORTED.format(1)
+            "loading checkpoints is " + _NOT_PORTED.format(10)
             + "; build the model with WhisperModel.from_parts"
         )
 
@@ -110,17 +116,18 @@ class WhisperModel:
         compute_type: str = "default",
         device="cuda",
     ) -> "WhisperModel":
-        """Build a WhisperModel from in-memory pieces: a parameter tree
-        (``models/load.py``), its config and a base tokenizer.  The
+        """Build a WhisperModel from in-memory pieces: a float parameter
+        tree (``models/load.py``), its config and a base tokenizer.  The
         parameters are moved to ``device`` (default the card; without one
         this raises) and cast to the compute type's dtype; the card's
-        kernels take bfloat16."""
+        kernels take bfloat16.  The int8 compute types then quantize the
+        cast tree (``ops/quant.py::quantize_params``) and decode over int8
+        KV caches."""
         from faster_whisper_tpu_torch.models.engine import WhisperEngine
+        from faster_whisper_tpu_torch.ops.quant import quantize_params
 
-        if compute_type.startswith("int8"):
-            raise NotImplementedError(f"compute_type={compute_type!r} is " + _NOT_PORTED.format(8))
         if compute_type == "int4":
-            raise NotImplementedError("compute_type='int4' is " + _NOT_PORTED.format(10))
+            raise NotImplementedError("compute_type='int4' is " + _NOT_PORTED.format(11))
         if compute_type not in _COMPUTE_TYPES:
             raise ValueError(f"unsupported compute_type: {compute_type}")
         dev = resolve_device(device)
@@ -138,7 +145,11 @@ class WhisperModel:
         self = cls.__new__(cls)
         self.logger = get_logger()
         self.hf_tokenizer = hf_tokenizer
-        self.model = WhisperEngine(move(params), config, hf_tokenizer)
+        kv_int8 = compute_type.startswith("int8")
+        params = move(params)
+        if kv_int8:
+            params = quantize_params(params)
+        self.model = WhisperEngine(params, config, hf_tokenizer, kv_int8=kv_int8)
         kwargs = dict(feature_extractor_kwargs or {})
         kwargs.setdefault("feature_size", config.n_mels)
         self.feature_extractor = FeatureExtractor(**kwargs)
@@ -208,15 +219,15 @@ class WhisperModel:
         ``WhisperModel.transcribe``; returns (lazy generator over Segment,
         TranscriptionInfo).  ``log_progress`` logs each window at INFO."""
         if vad_filter:
-            raise NotImplementedError("vad_filter=True: the Silero VAD is " + _NOT_PORTED.format(9))
+            raise NotImplementedError("vad_filter=True: the Silero VAD is " + _NOT_PORTED.format(6))
         if word_timestamps:
             raise NotImplementedError(
-                "word_timestamps=True: cross-attention alignment is " + _NOT_PORTED.format(6)
+                "word_timestamps=True: cross-attention alignment is " + _NOT_PORTED.format(10)
             )
         if not isinstance(audio, np.ndarray):
             raise TypeError(
                 "audio must be a float32 numpy array at 16 kHz: audio decoding is "
-                + _NOT_PORTED.format(7)
+                + _NOT_PORTED.format(10)
             )
         sampling_rate = self.feature_extractor.sampling_rate
 

@@ -1,12 +1,15 @@
-"""K1's plain version (the port's ``beam_attend_append_ref``) against the
-JAX package: ``beam_attend_append_xla`` and the Pallas kernel
-``beam_attend_append`` in interpret mode.  Same inputs, made with numpy
-from a seed, through both; outputs and caches compared.
+"""The plain version of K1 and K2 (the port's ``beam_attend_append_ref``,
+over a raw and an int8 cache) against the JAX package:
+``beam_attend_append_xla`` and the Pallas kernels ``_kernel_bf16`` and
+``_kernel_quant`` (through ``beam_attend_append``) in interpret mode.  Same
+inputs, made with numpy from a seed, through both; outputs and caches
+compared.  The int8 JAX calls run under ``jax.jit``, as the decode loop
+runs them.
 
 Tolerances: float32 1e-5 (the same math in the same precision; sums taken
 in another order).  bfloat16 relative 2e-2 of the output scale (one bf16
 rounding of q, of the weights and of the output, each ~0.4%, placed where
-the two frameworks round)."""
+the two frameworks round).  int8 codes and scales: exactly equal."""
 
 import numpy as np
 import pytest
@@ -19,10 +22,13 @@ from faster_whisper_tpu.ops.beam_attention import (
     beam_attend_append as jax_kernel,
     beam_attend_append_xla,
 )
+from faster_whisper_tpu.ops.quant import QuantKV as JaxQuantKV
+from faster_whisper_tpu.ops.quant import quantize_kv as jax_quantize_kv
 from faster_whisper_tpu_torch.ops.beam_attention import (
     beam_attend_append,
     beam_attend_append_ref,
 )
+from faster_whisper_tpu_torch.ops.quant import QuantKV
 
 F32_TOL = 1e-5
 BF16_REL = 2e-2
@@ -161,3 +167,96 @@ def test_wrapper_takes_the_plain_version_for_cpu_tensors():
     a2, sk2, _ = _run_torch(t2, 1)
     assert torch.equal(a1, a2) and torch.equal(sk1, sk2)
     assert beam_attend_append.launches == launches  # no kernel on the CPU
+
+
+# ---------------------------------------------------------------------------
+# int8 cache (K2's function)
+# ---------------------------------------------------------------------------
+
+
+def _quant_inputs(scale_dtype, **kw):
+    """``_inputs`` with the caches quantized by the JAX package (codes int8,
+    scales (L, B, H, K, ctx) in ``scale_dtype``), as numpy."""
+    arrs = _inputs(**kw)
+    quant = jax.jit(jax_quantize_kv)
+    for name in ("self_k", "self_v"):
+        c = quant(jnp.asarray(arrs[name]))
+        arrs[name + "_q"] = np.asarray(c.q)
+        arrs[name + "_s"] = np.asarray(c.s.astype(scale_dtype)).astype(np.float32)
+    return arrs
+
+
+def _quant_caches_jax(arrs, scale_dtype):
+    return tuple(
+        JaxQuantKV(jnp.asarray(arrs[n + "_q"]), jnp.asarray(arrs[n + "_s"], scale_dtype))
+        for n in ("self_k", "self_v")
+    )
+
+
+def _quant_caches_torch(arrs, scale_dtype):
+    return tuple(
+        QuantKV(torch.from_numpy(arrs[n + "_q"].copy()), torch.from_numpy(arrs[n + "_s"]).to(scale_dtype))
+        for n in ("self_k", "self_v")
+    )
+
+
+def _check_quant_caches(ours, ref, arrs, layer, pos):
+    for o, r, name in zip(ours, ref, ("self_k", "self_v")):
+        np.testing.assert_array_equal(o.q.numpy(), np.asarray(r.q))
+        np.testing.assert_array_equal(o.s.float().numpy(), np.asarray(r.s, np.float32))
+        # only the target column of layer `layer` moved
+        keep = np.ones(arrs[name + "_q"].shape, bool)
+        keep[layer, :, :, :, pos] = False
+        np.testing.assert_array_equal(o.q.numpy()[keep], arrs[name + "_q"][keep])
+        np.testing.assert_array_equal(o.s.float().numpy()[keep[..., 0]], arrs[name + "_s"][keep[..., 0]])
+
+
+@pytest.mark.parametrize("pos", [0, 7, 15])
+@pytest.mark.parametrize("scale_dtype", ["float32", "bfloat16"])
+def test_int8_plain_version_matches_xla_reference(scale_dtype, pos):
+    arrs = _quant_inputs(getattr(jnp, scale_dtype), pos=pos, seed=20 + pos)
+    j, t = _jax(arrs, jnp.float32), _torch(arrs, torch.float32)
+    layer = 1
+    ref_attn, *ref_caches = jax.jit(beam_attend_append_xla)(
+        jnp.int32(layer), j["pos_row"], j["q"], j["k_new"], j["v_new"],
+        *_quant_caches_jax(arrs, getattr(jnp, scale_dtype)), j["anc"],
+    )
+    sk, sv = _quant_caches_torch(arrs, getattr(torch, scale_dtype))
+    attn, *caches = beam_attend_append_ref(
+        layer, t["pos_row"], t["q"], t["k_new"], t["v_new"], sk, sv, t["anc"],
+    )
+    _close(attn, ref_attn, "float32")
+    assert caches[0] is sk and caches[1] is sv  # updated in place
+    _check_quant_caches(caches, ref_caches, arrs, layer, pos)
+
+
+def test_int8_plain_version_matches_pallas_kernel_interpret():
+    """At float32, with float32 scales: the TPU kernel's "own" term at the
+    unrounded scale then equals the stored one."""
+    arrs = _quant_inputs(jnp.float32, seed=23)
+    j, t = _jax(arrs, jnp.float32), _torch(arrs, torch.float32)
+    layer, pos = 2, int(arrs["pos_row"][0])
+    kernel = jax.jit(lambda *a: jax_kernel(*a, interpret=True))
+    ref_attn, *ref_caches = kernel(
+        jnp.int32(layer), j["pos_row"], j["q"], j["k_new"], j["v_new"],
+        *_quant_caches_jax(arrs, jnp.float32), j["anc"],
+    )
+    attn, *caches = beam_attend_append_ref(
+        layer, t["pos_row"], t["q"], t["k_new"], t["v_new"],
+        *_quant_caches_torch(arrs, torch.float32), t["anc"],
+    )
+    _close(attn, ref_attn, "float32")
+    _check_quant_caches(caches, ref_caches, arrs, layer, pos)
+
+
+def test_int8_wrapper_takes_the_plain_version_for_cpu_tensors():
+    arrs = _quant_inputs(jnp.bfloat16, seed=29)
+    t = _torch(arrs, torch.float32)
+    c1, c2 = _quant_caches_torch(arrs, torch.bfloat16), _quant_caches_torch(arrs, torch.bfloat16)
+    launches = beam_attend_append.launches_int8
+    a1, *r1 = beam_attend_append(1, t["pos_row"], t["q"], t["k_new"], t["v_new"], *c1, t["anc"])
+    a2, *r2 = beam_attend_append_ref(1, t["pos_row"], t["q"], t["k_new"], t["v_new"], *c2, t["anc"])
+    assert torch.equal(a1, a2)
+    for x, y in zip(r1, r2):
+        assert torch.equal(x.q, y.q) and torch.equal(x.s, y.s)
+    assert beam_attend_append.launches_int8 == launches  # no kernel on the CPU

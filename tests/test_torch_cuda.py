@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: build them from ``csrc/`` with
-nvcc, then hold K1 and K3 against their plain versions at the main path's
-shapes (``chip_smoke.py`` phases 2 and 3).  Skips without a card; on the
+nvcc, then hold K1, K2, K3 and both forms of K4 against their plain
+versions at the main path's shapes (``chip_smoke.py`` phases 2 and 3).  Skips without a card; on the
 card run
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -36,8 +36,33 @@ def test_beam_attention_kernel_matches_plain_version(card):
     assert chip_smoke.check_beam_attention() >= 0.0
 
 
+def test_int8_beam_attention_kernel_matches_plain_version(card):
+    err, _codes_one_unit_apart = chip_smoke.check_beam_attention_int8()
+    assert err >= 0.0
+
+
 def test_flash_attention_kernel_matches_plain_version(card):
     assert chip_smoke.check_flash_attention() >= 0.0
+
+
+def test_cross_attention_kernel_matches_plain_version(card):
+    assert set(chip_smoke.check_cross_attention()) == {"bf16", "int8"}
+
+
+def test_int8_dense_on_the_card_matches_the_cpu(card):
+    """The card's int8 product (rows padded to 17 for torch._int_mm) gives
+    the CPU's exact int32 sums: at 5 rows, the decode's beam grid, and at
+    the padded 51872-column logits head."""
+    from faster_whisper_tpu_torch.ops.quant import int8_dense, quantize_weight
+
+    g = torch.Generator().manual_seed(0)
+    for rows, n_out in ((5, 1280), (40, 51872)):
+        x = torch.randn((rows, 1280), generator=g)
+        w = quantize_weight(0.02 * torch.randn((1280, n_out), generator=g))
+        cpu = int8_dense(x, w, out_dtype=torch.float32)
+        w_card = type(w)(w.q.cuda(), w.s.cuda())
+        card = int8_dense(x.cuda(), w_card, out_dtype=torch.float32).cpu()
+        torch.testing.assert_close(card, cpu, rtol=1e-6, atol=1e-6)
 
 
 def test_wrappers_count_launches_and_reject_what_the_kernels_do_not_take(card):
@@ -62,3 +87,27 @@ def test_wrappers_count_launches_and_reject_what_the_kernels_do_not_take(card):
             0, x["pos_row"].long(), x["q"], x["k_new"], x["v_new"],
             x["self_k"], x["self_v"], x["anc"],
         )
+
+    x = chip_smoke.k2_inputs(1, 3)
+    n, n1 = beam_attend_append.launches_int8, beam_attend_append.launches
+    chip_smoke._k1_call(beam_attend_append, x)
+    assert (beam_attend_append.launches_int8, beam_attend_append.launches) == (n + 1, n1)
+    with pytest.raises(TypeError):  # f32 scales: the kernel takes bf16
+        sk = type(x["self_k"])(x["self_k"].q, x["self_k"].s.float())
+        beam_attend_append(
+            0, x["pos_row"], x["q"], x["k_new"], x["v_new"], sk, x["self_v"], x["anc"],
+        )
+
+    from faster_whisper_tpu_torch.ops.cross_attention import cross_attend
+
+    for quant in (False, True):
+        layer, q, ck, cv = chip_smoke.k4_inputs(1, quant, T=100)
+        n = (cross_attend.launches, cross_attend.launches_int8)
+        cross_attend(layer, q, ck, cv)
+        assert (cross_attend.launches, cross_attend.launches_int8) == (
+            n[0] + (not quant), n[1] + quant,
+        )
+        with pytest.raises(TypeError):
+            cross_attend(layer, q.float(), ck, cv)
+        with pytest.raises(ValueError):  # more beams than the kernel holds
+            cross_attend(layer, q.repeat(1, 1, 4, 1), ck, cv)

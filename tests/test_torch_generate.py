@@ -3,7 +3,11 @@ micro config, on the same float32 weights and encoder states.
 
 Greedy and beam-5 decodes, with and without timestamps, must give the JAX
 package's tokens exactly and its scores to 1e-5 (float32; sums of
-log-probabilities in another order).  Sampling cannot match JAX's
+log-probabilities in another order), on float32 weights and on the same
+weights quantized to int8 with int8 KV caches.  The int8 prefill and
+decoder step give the JAX package's logits to 1e-5 and its cache codes
+and scales exactly (int32 products are exact, and the float32 chains
+around them run in the same order).  Sampling cannot match JAX's
 threefry bit for bit, so it is held to seeded reproducibility and to the
 logits rules instead."""
 
@@ -19,13 +23,17 @@ from faster_whisper_tpu.generation import processors as JP
 from faster_whisper_tpu.models import model as JM
 from faster_whisper_tpu.models.config import tiny_test_config as jax_config
 from faster_whisper_tpu.models.load import random_params as jax_random_params
+from faster_whisper_tpu.ops import quant as JQ
 from faster_whisper_tpu.testing import build_synthetic_tokenizer as jax_tokenizer
 from faster_whisper_tpu.tokenizer import Tokenizer as JaxTokenizer
 from faster_whisper_tpu_torch.generation import generate as PG
 from faster_whisper_tpu_torch.generation import processors as PP
 from faster_whisper_tpu_torch.models.config import tiny_test_config
 from faster_whisper_tpu_torch.models.engine import WhisperEngine
+from faster_whisper_tpu_torch.models import model as PM
 from faster_whisper_tpu_torch.models.load import params_from_jax
+from faster_whisper_tpu_torch.ops import quant as PQ
+from faster_whisper_tpu_torch.ops.quant import QuantKV
 from faster_whisper_tpu_torch.testing import build_synthetic_tokenizer
 
 SCORE_TOL = 1e-5
@@ -192,3 +200,93 @@ def test_beam_candidate_select_matches_jax():
     v, i = torch.topk(torch.from_numpy(x), 10)
     np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+
+
+# ---------------------------------------------------------------------------
+# int8 (compute_type int8: W8A8 weights, int8 self and cross caches)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def int8_params(setup):
+    """The same float32 weights quantized by each package."""
+    jp, xa, jtok, engine = setup
+    return JQ.quantize_params(jp), PQ.quantize_params(engine.params)
+
+
+def _np(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+def test_int8_prefill_caches_and_decoder_step_match_jax(setup, int8_params):
+    """The int8 prefill, ``_expand_caches(kv_int8=True)`` and one decoder
+    step (K2's and K4's plain versions in every layer) against the JAX
+    package's unfused step on the same caches."""
+    jp, xa, jtok, engine = setup
+    jq, pq = int8_params
+    b, K, ctx = 2, 3, 32
+    prompt = np.array([list(jtok.sot_sequence)] * b, np.int32)
+    lengths = np.full((b,), prompt.shape[1], np.int32)
+    gather = (lengths - 1)[:, None]
+
+    prefill = jax.jit(JM.decoder_prefill, static_argnames=("config", "ctx"))
+    j_logits, j_cache = prefill(jq, jax_config(), prompt, lengths, jnp.asarray(xa), gather, ctx=ctx)
+    p_logits, p_cache = PM.decoder_prefill(
+        pq, engine.config, torch.from_numpy(prompt).long(), torch.from_numpy(lengths).long(),
+        torch.from_numpy(xa), torch.from_numpy(gather).long(), ctx=ctx,
+    )
+    np.testing.assert_allclose(_np(p_logits), _np(j_logits), atol=SCORE_TOL, rtol=0)
+
+    j_caches = jax.jit(JG._expand_caches, static_argnums=(1, 2))(j_cache, K, True)
+    p_caches = PG._expand_caches(p_cache, K, True)
+    for jc, pc in zip(j_caches, p_caches):
+        assert pc.s.dtype == torch.bfloat16 and pc.q.is_contiguous()
+        assert tuple(pc.q.shape) == jc.q.shape and tuple(pc.s.shape) == jc.s.shape
+        np.testing.assert_array_equal(pc.q.numpy(), np.asarray(jc.q))
+        np.testing.assert_array_equal(_np(pc.s), _np(jc.s))
+
+    # one step from the JAX package's caches, carried across exactly
+    caches = [QuantKV(torch.from_numpy(np.array(c.q)), torch.from_numpy(_np(c.s)).bfloat16())
+              for c in j_caches]
+    rng = np.random.default_rng(0)
+    token = rng.integers(0, 256, (b, K)).astype(np.int32)
+    pos = np.full((b, K), prompt.shape[1], np.int32)
+    anc = rng.integers(0, K, (b, K, ctx)).astype(np.int32)
+    anc[:, :, prompt.shape[1]] = np.arange(K)
+    step = jax.jit(JG._gen_decoder_step, static_argnames=("config", "fused"))
+    j_out, j_sk, j_sv = step(
+        jq, jax_config(), token, pos, pos[:, 0], *j_caches, anc, fused=False,
+    )
+    p_out, p_sk, p_sv = PG._gen_decoder_step(
+        pq, engine.config, torch.from_numpy(token).long(), torch.from_numpy(pos).long(),
+        torch.from_numpy(pos[:, 0]), *caches, torch.from_numpy(anc),
+    )
+    np.testing.assert_allclose(_np(p_out), _np(j_out), atol=SCORE_TOL, rtol=0)
+    for pc, jc in ((p_sk, j_sk), (p_sv, j_sv)):
+        np.testing.assert_array_equal(pc.q.numpy(), np.asarray(jc.q))
+        np.testing.assert_array_equal(_np(pc.s), _np(jc.s))
+
+
+@pytest.mark.parametrize(
+    "beam_size,with_timestamps", [(1, True), (5, True), (5, False)],
+)
+def test_int8_beam_search_and_greedy_match_jax(setup, int8_params, beam_size, with_timestamps):
+    jp, xa, jtok, engine = setup
+    jq, pq = int8_params
+    prompt = list(jtok.sot_sequence) + ([] if with_timestamps else [jtok.no_timestamps])
+    kwargs = dict(
+        sot_id=jtok.sot, beam_size=beam_size, max_length=len(prompt) + 48,
+        with_timestamps=with_timestamps, suppress_tokens=(jtok.no_speech,),
+    )
+    ref = JG.generate(jq, jax_config(), _meta(engine), jnp.asarray(xa[:1]), [prompt],
+                      kv_int8=True, **kwargs)
+    ours = PG.generate_collect(
+        PG.generate_dispatch(
+            pq, engine.config, engine.meta, torch.from_numpy(xa[:1]), [prompt],
+            kv_int8=True, **kwargs,
+        )
+    )
+    for r, o in zip(ref, ours):
+        assert o.sequences_ids == r.sequences_ids
+        np.testing.assert_allclose(o.scores, r.scores, atol=SCORE_TOL, rtol=0)
+        assert o.no_speech_prob == pytest.approx(r.no_speech_prob, abs=SCORE_TOL)
