@@ -10,23 +10,29 @@ Phases, each printing its own line with its seconds:
 2. build: compiles every CUDA kernel of the main path from ``csrc/`` with
    nvcc (one process per source, all started together) and prints the
    ``-Xptxas -v`` register and shared-memory lines;
-3. kernels: holds each kernel against its plain PyTorch version on the
-   card, at the main path's shapes, in bfloat16: K1 and K2 (beam
-   self-attention over a bf16 and an int8 cache), K3 (encoder flash
-   attention), K4 in its bf16 and int8 forms (decode cross-attention);
-4. times: each kernel, its plain version and, where one exists, the one
-   PyTorch call that computes the same function, on the card (CUDA events
-   around the replay of a CUDA graph of 20 calls), beside the least time
-   the card could take (its bound), and each kernel's time per call when
-   the host issues the calls one by one, as the decode loop does;
+3. kernels: holds each kernel form against its plain PyTorch version on
+   the card, at the main path's shapes, in bfloat16 and in float32: K1 and
+   K2 (beam self-attention over a raw and an int8 cache), K3 (encoder
+   flash attention), K4 over a raw
+   and an int8 cache (decode cross-attention; two calls back to back and
+   two layers in one CUDA graph, which reuse its ticket counters);
+4. times: each kernel form, its plain version and, where one exists, the
+   one PyTorch call that computes the same function, on the card (CUDA
+   events around the replay of a CUDA graph of 20 calls, L2 warm), each
+   kernel again with L2 cold (a 256 MB buffer written before each call,
+   each call under its own events), beside the least time the card could
+   take (its bound), and each kernel's time per call when the host issues
+   the calls one by one, as the decode loop does;
 5. main path: ``WhisperModel.transcribe`` at large-v3-turbo width (random
-   weights from a seed, the synthetic 51866-token vocabulary), first at
-   bf16 on three requests (a-c), then at ``compute_type="int8"`` on two
-   (d, e), each with the launch counts set to 0 before and read after: K1
-   and K4's bf16 form four times per bf16 decode step, K2 and K4's int8
-   form four times per int8 decode step, K3 32 times per encode.  Then it
-   holds a small model on the card, at bf16 and at int8, against the same
-   model in float32 on the CPU.
+   weights from a seed, the synthetic 51866-token vocabulary), at bf16 on
+   three requests (a-c), at ``compute_type="int8"`` on two (d, e), at
+   ``"float32"`` on one (f) and at ``"int8_float32"`` on one (g), each run
+   with the launch counts set to 0 before and read after: per decode step
+   four launches of K1 and K4 in the run's activation type over a raw
+   cache, or of K2 and K4's int8 form over an int8 cache, per encode 32 of
+   K3 in the run's activation type, and no launch of any other form.  Then
+   it holds a small model on the card, at bf16, int8, float32 and
+   int8_float32, against the same model on the CPU.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as the last line
@@ -48,6 +54,13 @@ BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 BF16_REL_TOL = 2e-2  # of the output scale: one bf16 rounding of P and of the output
+# Of the output scale, for the float32 forms: the same function in float32,
+# sums over up to 1500 terms taken in another order, exp2f/expf within 2 ulp.
+F32_REL_TOL = 2e-5
+# A small float32 model on the card against the CPU: float32 matmuls and
+# convolutions on both (TF32 off), summed in other orders through every layer.
+F32_MODEL_TOL = 1e-5
+FLUSH_BYTES = 256 * 2**20  # written before each L2-cold call: 5x the 50 MB L2
 
 K1_REPLACES = "faster_whisper_tpu/ops/beam_attention.py:248"
 K2_REPLACES = "faster_whisper_tpu/ops/beam_attention.py:91"
@@ -93,16 +106,26 @@ def build_kernels():
 # ---------------------------------------------------------------------------
 
 
-def k1_inputs(B, pos, K=5, H=20, D=64, L=4, ctx=448, seed=0, divergent=False):
-    """K1's inputs.  ``anc`` draws each query beam's slot per column at
-    random, so that beams share rows; with ``divergent`` every column is a
-    permutation of the K slots instead, so that no two beams share a row
-    (the case in which each query reads K*pos distinct cache rows)."""
+def tolerance(dtype):
+    return F32_REL_TOL if dtype == torch.float32 else BF16_REL_TOL
+
+
+def dtype_name(dtype):
+    return "f32" if dtype == torch.float32 else "bf16"
+
+
+def k1_inputs(B, pos, K=5, H=20, D=64, L=4, ctx=448, seed=0, divergent=False,
+              dtype=torch.bfloat16):
+    """K1's inputs in ``dtype``.  ``anc`` draws each query beam's slot per
+    column at random, so that beams share rows; with ``divergent`` every
+    column is a permutation of the K slots instead, so that no two beams
+    share a row (the case in which each query reads K*pos distinct cache
+    rows)."""
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
 
     def randn(*shape):
-        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
     if divergent:
         keys = torch.rand((B, ctx, K), generator=g, device="cuda")
@@ -131,10 +154,12 @@ def _k1_call(fn, x, caches=None):
     return fn(x["layer"], x["pos_row"], x["q"], x["k_new"], x["v_new"], sk, sv, x["anc"])
 
 
-def check_beam_attention(shapes=((1, 0), (1, 17), (1, 447), (8, 0), (8, 17), (8, 447))):
-    """K1 against its plain version: the attention output within the bf16
-    tolerance, and the caches: the target column of every slot holds the
-    new K/V, every other element is untouched.  Returns the max abs error."""
+def check_beam_attention(shapes=((1, 0), (1, 17), (1, 447), (8, 0), (8, 17), (8, 447)),
+                         dtype=torch.bfloat16):
+    """K1 in ``dtype`` against its plain version: the attention output
+    within the dtype's tolerance, and the caches: the target column of every
+    slot holds the new K/V, every other element is untouched.  Returns the
+    max abs error."""
     from faster_whisper_tpu_torch.ops.beam_attention import (
         beam_attend_append,
         beam_attend_append_ref,
@@ -142,13 +167,14 @@ def check_beam_attention(shapes=((1, 0), (1, 17), (1, 447), (8, 0), (8, 17), (8,
 
     worst = 0.0
     for (B, pos), divergent in ((shape, d) for shape in shapes for d in (False, True)):
-        x = k1_inputs(B, pos, seed=B * 1000 + pos, divergent=divergent)
+        x = k1_inputs(B, pos, seed=B * 1000 + pos, divergent=divergent, dtype=dtype)
         ref, rk, rv = _k1_call(beam_attend_append_ref, x)
         out, ok, ov = _k1_call(beam_attend_append, x)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
-        tol = BF16_REL_TOL * ref.float().abs().max().item()
-        print(f"K1 B={B} K=5 ctx=448 pos={pos} {'divergent' if divergent else 'shared'} ancestry: "
+        tol = tolerance(dtype) * ref.float().abs().max().item()
+        print(f"K1 {dtype_name(dtype)} B={B} K=5 ctx=448 pos={pos} "
+              f"{'divergent' if divergent else 'shared'} ancestry: "
               f"max|err| {err:.3e} (tolerance {tol:.3e})")
         if not err <= tol:
             raise AssertionError(f"K1 disagrees with its plain version at B={B}, pos={pos}, divergent={divergent}")
@@ -184,9 +210,11 @@ def k2_inputs(B, pos, seed=0, divergent=False, **kw):
     return x
 
 
-def check_beam_attention_int8(shapes=((1, 0), (1, 17), (1, 447), (8, 0), (8, 17), (8, 447))):
-    """K2 against its plain version: the attention output within the bf16
-    tolerance; the codes written at the target column equal to the plain
+def check_beam_attention_int8(shapes=((1, 0), (1, 17), (1, 447), (8, 0), (8, 17), (8, 447)),
+                              dtype=torch.bfloat16):
+    """K2 with ``dtype`` activations against its plain version: the
+    attention output within the dtype's tolerance; the codes written at the
+    target column equal to the plain
     version's (up to one unit where a value lies on a rounding boundary,
     counted), the scales bit-equal, and nothing outside the target column
     moved.  Returns (max abs error, count of codes that differ)."""
@@ -197,17 +225,18 @@ def check_beam_attention_int8(shapes=((1, 0), (1, 17), (1, 447), (8, 0), (8, 17)
 
     worst, n_diff = 0.0, 0
     for (B, pos), divergent in ((shape, d) for shape in shapes for d in (False, True)):
-        x = k2_inputs(B, pos, seed=B * 1000 + pos + 7, divergent=divergent)
+        x = k2_inputs(B, pos, seed=B * 1000 + pos + 7, divergent=divergent, dtype=dtype)
         ref, rk, rv = _k1_call(beam_attend_append_ref, x)
         out, ok, ov = _k1_call(beam_attend_append, x)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
-        tol = BF16_REL_TOL * ref.float().abs().max().item()
+        tol = tolerance(dtype) * ref.float().abs().max().item()
         code_diff = max(
             (a.q.int() - b.q.int()).abs().max().item() for a, b in ((ok, rk), (ov, rv))
         )
         n = sum(int((a.q != b.q).sum()) for a, b in ((ok, rk), (ov, rv)))
-        print(f"K2 B={B} K=5 ctx=448 pos={pos} {'divergent' if divergent else 'shared'} ancestry: "
+        print(f"K2 {dtype_name(dtype)} B={B} K=5 ctx=448 pos={pos} "
+              f"{'divergent' if divergent else 'shared'} ancestry: "
               f"max|err| {err:.3e} (tolerance {tol:.3e}), {n} codes differ (max {code_diff})")
         if not err <= tol:
             raise AssertionError(f"K2 disagrees with its plain version at B={B}, pos={pos}, divergent={divergent}")
@@ -232,17 +261,17 @@ def check_beam_attention_int8(shapes=((1, 0), (1, 17), (1, 447), (8, 0), (8, 17)
 # ---------------------------------------------------------------------------
 
 
-def k4_inputs(B, quant, K=5, H=20, D=64, L=4, T=1500, seed=0):
-    """A layer index, queries (B, H, K, D) and the stacked (L, B, H, T, D)
-    cross caches: bf16, or int8 codes with bf16 scales (L, B, H, 1, T) as
-    the int8 decode stores them."""
+def k4_inputs(B, quant, K=5, H=20, D=64, L=4, T=1500, seed=0, dtype=torch.bfloat16):
+    """A layer index, queries (B, H, K, D) in ``dtype`` and the stacked
+    (L, B, H, T, D) cross caches: raw in ``dtype``, or int8 codes with bf16
+    scales (L, B, H, 1, T) as the int8 decode stores them."""
     from faster_whisper_tpu_torch.ops.quant import QuantKV, quantize_kv
 
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
 
     def randn(*shape):
-        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
     q, ck, cv = randn(B, H, K, D), randn(L, B, H, T, D), randn(L, B, H, T, D)
     if quant:
@@ -253,25 +282,58 @@ def k4_inputs(B, quant, K=5, H=20, D=64, L=4, T=1500, seed=0):
     return L - 1, q, ck, cv
 
 
-def check_cross_attention(batches=(1, 8)):
-    """K4, both forms, against its plain version; returns {form: max abs
-    error}."""
+K4_FORMS = {  # form -> (int8 cache, activation dtype)
+    "bf16": (False, torch.bfloat16),
+    "int8": (True, torch.bfloat16),
+    "f32": (False, torch.float32),
+    "int8 f32": (True, torch.float32),
+}
+
+
+def check_cross_attention(batches=(1, 8), forms=tuple(K4_FORMS), Ts=(1500,), Ks=(5,), L=4):
+    """K4, each form, against its plain version; the second of two calls
+    back to back must equal the first (the ticket counters were reset), and
+    two layers captured in one CUDA graph and replayed twice must agree
+    with their plain versions.  Returns {form: max abs error}."""
     from faster_whisper_tpu_torch.ops.cross_attention import cross_attend, cross_attend_ref
 
     worst = {}
-    for quant in (False, True):
-        form = "int8" if quant else "bf16"
+    for form in forms:
+        quant, dtype = K4_FORMS[form]
         for B in batches:
-            args = k4_inputs(B, quant, seed=B + 10 * quant)
-            ref = cross_attend_ref(*args)
-            out = cross_attend(*args)
+            for T in Ts:
+                for K in Ks:
+                    layer, q, ck, cv = k4_inputs(B, quant, K=K, L=L, T=T, seed=B + 10 * quant + T + K,
+                                                 dtype=dtype)
+                    ref = cross_attend_ref(layer, q, ck, cv)
+                    out = cross_attend(layer, q, ck, cv)
+                    again = cross_attend(layer, q, ck, cv)
+                    torch.cuda.synchronize()
+                    err = (out.float() - ref.float()).abs().max().item()
+                    tol = tolerance(dtype) * ref.float().abs().max().item()
+                    print(f"K4 {form} B={B} K={K} T={T}: max|err| {err:.3e} (tolerance {tol:.3e})")
+                    if not err <= tol:
+                        raise AssertionError(f"K4 ({form}) disagrees with its plain version at B={B}, K={K}, T={T}")
+                    if not torch.equal(out, again):
+                        raise AssertionError(f"K4 ({form}): a second call differs from the first at B={B}, K={K}, T={T}")
+                    worst[form] = max(worst.get(form, 0.0), err)
+        # Two layers in one graph, replayed twice.
+        layer, q, ck, cv = k4_inputs(batches[0], quant, L=L, T=Ts[0], seed=99, dtype=dtype)
+        refs = [cross_attend_ref(i, q, ck, cv) for i in (layer, layer - 1)]
+        for i in (layer, layer - 1):  # warm-up outside the capture
+            cross_attend(i, q, ck, cv)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = [cross_attend(i, q, ck, cv) for i in (layer, layer - 1)]
+        for _ in range(2):
+            graph.replay()
             torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            tol = BF16_REL_TOL * ref.float().abs().max().item()
-            print(f"K4 {form} B={B} K=5 T=1500: max|err| {err:.3e} (tolerance {tol:.3e})")
-            if not err <= tol:
-                raise AssertionError(f"K4 ({form}) disagrees with its plain version at B={B}")
-            worst[form] = max(worst.get(form, 0.0), err)
+            for o, r in zip(outs, refs):
+                err = (o.float() - r.float()).abs().max().item()
+                if not err <= tolerance(dtype) * r.float().abs().max().item():
+                    raise AssertionError(f"K4 ({form}) in a CUDA graph of two layers disagrees: {err:.3e}")
+        print(f"K4 {form}: two layers in one CUDA graph, replayed twice, agree")
     return worst
 
 
@@ -280,31 +342,33 @@ def check_cross_attention(batches=(1, 8)):
 # ---------------------------------------------------------------------------
 
 
-def k3_inputs(B, S=1500, H=20, D=64, seed=0):
+def k3_inputs(B, S=1500, H=20, D=64, seed=0, dtype=torch.bfloat16):
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     return [
-        torch.randn((B, S, H, D), generator=g, device="cuda").to(torch.bfloat16)
+        torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
         for _ in range(3)
     ]
 
 
-def check_flash_attention(batches=(1, 8)):
-    """K3 against its plain version (``mha``); returns the max abs error."""
+def check_flash_attention(batches=(1, 8), Ss=(1500,), dtype=torch.bfloat16):
+    """K3 in ``dtype`` against its plain version (``mha``); returns the max
+    abs error."""
     from faster_whisper_tpu_torch.ops.attention import mha, mha_flash
 
     worst = 0.0
     for B in batches:
-        q, k, v = k3_inputs(B, seed=B)
-        ref = mha(q, k, v)
-        out = mha_flash(q, k, v)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = BF16_REL_TOL * ref.float().abs().max().item()
-        print(f"K3 ({B},1500,20,64): max|err| {err:.3e} (tolerance {tol:.3e})")
-        if not err <= tol:
-            raise AssertionError(f"K3 disagrees with its plain version at B={B}")
-        worst = max(worst, err)
+        for S in Ss:
+            q, k, v = k3_inputs(B, S, seed=B + S, dtype=dtype)
+            ref = mha(q, k, v)
+            out = mha_flash(q, k, v)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = tolerance(dtype) * ref.float().abs().max().item()
+            print(f"K3 {dtype_name(dtype)} ({B},{S},20,64): max|err| {err:.3e} (tolerance {tol:.3e})")
+            if not err <= tol:
+                raise AssertionError(f"K3 ({dtype_name(dtype)}) disagrees with its plain version at B={B}, S={S}")
+            worst = max(worst, err)
     return worst
 
 
@@ -357,80 +421,115 @@ def call_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def cold_ms(fn, iters=10):
+    """Mean device time of one call of ``fn`` with L2 cold: before each
+    call a 256 MB buffer is written (five times the 50 MB L2), and each
+    call is timed alone with CUDA events.  A sleep queued ahead of the
+    write keeps the card busy while the host issues the call, so that the
+    host's cost per call stays off the clock."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    fn()
+    pairs = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000)
+        flush.fill_(1.0)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
 def bound(nbytes, flops, peak_flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_beam_attention(B=1, pos=447, K=5, H=20, D=64, quant=False):
-    """K1, or K2 with ``quant``, on a divergent ancestry."""
+def _timed(kernel, plain, library=None):
+    """The kernel warm, cold and per host call; the plain version and the
+    library call (where one exists) warm."""
+    return dict(
+        ms=time_ms(kernel), cold_ms=cold_ms(kernel), call_ms=call_ms(kernel),
+        plain_ms=time_ms(plain, iters=5),
+        library_ms=None if library is None else time_ms(library),
+        library_cold_ms=None if library is None else cold_ms(library),
+    )
+
+
+def time_beam_attention(B=1, pos=447, K=5, H=20, D=64, quant=False, dtype=torch.bfloat16):
+    """K1, or K2 with ``quant``, with ``dtype`` activations, on a divergent
+    ancestry."""
     from faster_whisper_tpu_torch.ops.beam_attention import (
         beam_attend_append,
         beam_attend_append_ref,
     )
 
-    x = (k2_inputs if quant else k1_inputs)(B, pos, divergent=True)
+    x = (k2_inputs if quant else k1_inputs)(B, pos, divergent=True, dtype=dtype)
     caches = (x["self_k"], x["self_v"])  # rewritten in place with the same column
-    ms = time_ms(lambda: _k1_call(beam_attend_append, x, caches))
-    host_ms = call_ms(lambda: _k1_call(beam_attend_append, x, caches))
-    plain_ms = time_ms(lambda: _k1_call(beam_attend_append_ref, x, caches), iters=5)
+    t = _timed(lambda: _k1_call(beam_attend_append, x, caches),
+               lambda: _k1_call(beam_attend_append_ref, x, caches))
     n = pos + 1
     # Cache rows the step must read: the distinct (slot, column) pairs of
     # the columns before pos (column pos comes from k_new/v_new).
     seen = x["anc"][:, :, :pos].sort(dim=1).values
     rows = B * pos + int((seen[:, 1:] != seen[:, :-1]).sum()) if pos else 0
-    row_bytes = D + 2 if quant else 2 * D  # int8 codes and a bf16 scale, or bf16
+    act = torch.finfo(dtype).bits // 8
+    row_bytes = D + 2 if quant else act * D  # int8 codes and a bf16 scale, or raw
     nbytes = (
         rows * H * row_bytes * 2  # the visible K and V rows
         + B * K * n * 4  # ancestry
-        + 4 * B * H * K * D * 2  # q, k_new, v_new and the output
+        + 4 * B * H * K * D * act  # q, k_new, v_new and the output
         + 2 * B * H * K * row_bytes  # the two written columns
     )
     flops = 4 * B * H * K * n * D  # QK and PV, f32 FMA
-    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                call_ms=host_ms,
-                shape=f"B={B} H={H} K={K} ctx=448 pos={pos} D={D}{' int8' if quant else ''}, "
-                      f"divergent beams ({rows} distinct cache rows)")
+    t["bound_ms"], t["bound_by"] = bound(nbytes, flops, F32_FLOPS)
+    t["shape"] = (f"B={B} H={H} K={K} ctx=448 pos={pos} D={D} {dtype_name(dtype)}"
+                  f"{' int8 cache' if quant else ''}, divergent beams ({rows} distinct cache rows)")
+    return t
 
 
-def time_cross_attention(quant, B=1, K=5, H=20, D=64, T=1500):
-    from faster_whisper_tpu_torch.ops.cross_attention import cross_attend, cross_attend_ref
+def time_cross_attention(quant, B=1, K=5, H=20, D=64, T=1500, dtype=torch.bfloat16):
+    from faster_whisper_tpu_torch.ops.cross_attention import (
+        _split_plan,
+        cross_attend,
+        cross_attend_ref,
+    )
 
-    layer, q, ck, cv = k4_inputs(B, quant, K=K, H=H, D=D, T=T)
-    ms = time_ms(lambda: cross_attend(layer, q, ck, cv))
-    host_ms = call_ms(lambda: cross_attend(layer, q, ck, cv))
-    plain_ms = time_ms(lambda: cross_attend_ref(layer, q, ck, cv), iters=5)
-    library_ms = None
-    if not quant:  # the same function in one PyTorch call (bf16 form only)
-        library_ms = time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(q, ck[layer], cv[layer])
-        )
-    cache_bytes = 2 * B * H * T * (D + 2) if quant else 2 * B * H * T * D * 2
-    nbytes = cache_bytes + 2 * B * H * K * D * 2  # K/V (and scales), q and output
+    layer, q, ck, cv = k4_inputs(B, quant, K=K, H=H, D=D, T=T, dtype=dtype)
+    library = None
+    if not quant:  # the same function in one PyTorch call (raw cache only)
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(q, ck[layer], cv[layer])  # noqa: E731
+    t = _timed(lambda: cross_attend(layer, q, ck, cv), lambda: cross_attend_ref(layer, q, ck, cv),
+               library)
+    act = torch.finfo(dtype).bits // 8
+    cache_bytes = 2 * B * H * T * (D + 2) if quant else 2 * B * H * T * D * act
+    nbytes = cache_bytes + 2 * B * H * K * D * act  # K/V (and scales), q and output
     flops = 4 * B * H * K * T * D  # QK and PV, f32 FMA
-    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                call_ms=host_ms, shape=f"B={B} H={H} K={K} T={T} D={D} {'int8' if quant else 'bf16'}")
+    t["bound_ms"], t["bound_by"] = bound(nbytes, flops, F32_FLOPS)
+    chunk, n_chunks = _split_plan(B, H, T, torch.cuda.get_device_properties(0).multi_processor_count)
+    t["shape"] = (f"B={B} H={H} K={K} T={T} D={D} {dtype_name(dtype)}{' int8 cache' if quant else ''}"
+                  f", {n_chunks} chunks of {chunk}: {n_chunks * B * H} blocks")
+    return t
 
 
-def time_flash_attention(B=1, S=1500, H=20, D=64):
+def time_flash_attention(B=1, S=1500, H=20, D=64, dtype=torch.bfloat16):
     from faster_whisper_tpu_torch.ops.attention import mha, mha_flash
 
-    q, k, v = k3_inputs(B, S, H, D)
-    ms = time_ms(lambda: mha_flash(q, k, v))
-    host_ms = call_ms(lambda: mha_flash(q, k, v))
-    plain_ms = time_ms(lambda: mha(q, k, v), iters=5)
+    q, k, v = k3_inputs(B, S, H, D, dtype=dtype)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    library_ms = time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
-    )
-    nbytes = 4 * B * S * H * D * 2
+    t = _timed(lambda: mha_flash(q, k, v), lambda: mha(q, k, v),
+               lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
+    act = torch.finfo(dtype).bits // 8
+    nbytes = 4 * B * S * H * D * act
     flops = 4 * B * H * S * S * D
-    b_ms, b_by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms, call_ms=host_ms, shape=f"({B},{S},{H},{D})")
+    peak = F32_FLOPS if dtype == torch.float32 else BF16_TENSOR_FLOPS
+    t["bound_ms"], t["bound_by"] = bound(nbytes, flops, peak)
+    t["shape"] = f"({B},{S},{H},{D}) {dtype_name(dtype)}"
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -454,12 +553,15 @@ def _counted():
     from faster_whisper_tpu_torch.ops.beam_attention import beam_attend_append
     from faster_whisper_tpu_torch.ops.cross_attention import cross_attend
 
-    # name -> (function, attribute)
+    # name -> (function, attribute); every name but steps and encodes is a
+    # kernel form's launch count
     return dict(
-        k1=(beam_attend_append, "launches"), k2=(beam_attend_append, "launches_int8"),
-        k3=(mha_flash, "launches"), k4_bf16=(cross_attend, "launches"),
-        k4_int8=(cross_attend, "launches_int8"), steps=(_gen_decoder_step, "calls"),
-        encodes=(encode, "calls"),
+        k1=(beam_attend_append, "launches"), k1_f32=(beam_attend_append, "launches_f32"),
+        k2=(beam_attend_append, "launches_int8"), k2_f32=(beam_attend_append, "launches_int8_f32"),
+        k3=(mha_flash, "launches"), k3_f32=(mha_flash, "launches_f32"),
+        k4_bf16=(cross_attend, "launches"), k4_f32=(cross_attend, "launches_f32"),
+        k4_int8=(cross_attend, "launches_int8"), k4_int8_f32=(cross_attend, "launches_int8_f32"),
+        steps=(_gen_decoder_step, "calls"), encodes=(encode, "calls"),
     )
 
 
@@ -491,26 +593,29 @@ def run_requests(model, requests, n_vocab):
     return read_counts()
 
 
-def check_counts(counts, per_step, idle, cfg):
-    """Every kernel in ``per_step`` launched n_text_layer times per decode
-    step, K3 n_audio_layer times per encode, the kernels in ``idle`` never."""
+def check_counts(counts, per_step, per_encode, cfg):
+    """Every kernel form in ``per_step`` launched n_text_layer times per
+    decode step, ``per_encode`` n_audio_layer times per encode, every other
+    form never."""
     if counts["steps"] == 0 or counts["encodes"] == 0:
         raise AssertionError(f"the run decoded or encoded nothing: {counts}")
-    for name in per_step:
-        if counts[name] != cfg.n_text_layer * counts["steps"]:
-            raise AssertionError(
-                f"{name} launches {counts[name]} != {cfg.n_text_layer} x {counts['steps']} decode steps"
-            )
-    if counts["k3"] != cfg.n_audio_layer * counts["encodes"]:
-        raise AssertionError(f"K3 launches {counts['k3']} != {cfg.n_audio_layer} x {counts['encodes']} encodes")
-    for name in idle:
-        if counts[name] != 0:
-            raise AssertionError(f"{name} launched {counts[name]} times on the other compute type's path")
+    for name, n in counts.items():
+        if name in ("steps", "encodes"):
+            continue
+        if name in per_step:
+            want, what = cfg.n_text_layer * counts["steps"], f"{cfg.n_text_layer} x {counts['steps']} decode steps"
+        elif name == per_encode:
+            want, what = cfg.n_audio_layer * counts["encodes"], f"{cfg.n_audio_layer} x {counts['encodes']} encodes"
+        else:
+            want, what = 0, "0: another compute type's form"
+        if n != want:
+            raise AssertionError(f"{name} launches {n} != {what}")
 
 
 def run_main_path():
-    """Requests a-c at bf16, then d-e at int8, on the same random weights;
-    returns the counts of the two runs."""
+    """Requests a-c at bf16, d-e at int8, f at float32 and g at
+    int8_float32, on the same random weights; returns the counts of the
+    four runs."""
     from faster_whisper_tpu_torch.models.config import CONFIGS
     from faster_whisper_tpu_torch.models.load import random_params
     from faster_whisper_tpu_torch.testing import build_synthetic_tokenizer
@@ -534,21 +639,32 @@ def run_main_path():
         ("c: 20 s, beam 1, temperature 0", short_clip, greedy),
     ], cfg.n_vocab)
     print(f"main path counts, bf16 (a-c): {bf16}")
-    check_counts(bf16, per_step=("k1", "k4_bf16"), idle=("k2", "k4_int8"), cfg=cfg)
-    del model
+    check_counts(bf16, per_step=("k1", "k4_bf16"), per_encode="k3", cfg=cfg)
 
-    t0 = time.perf_counter()
-    model = WhisperModel.from_parts(params, cfg, tok, compute_type="int8")
-    torch.cuda.synchronize()
-    print(f"large-v3-turbo quantized to int8 on the card: {time.perf_counter() - t0:.3f} s")
-    int8 = run_requests(model, [
-        ("d: int8, 45 s, language detection, beam 5, temperature ladder, timestamps",
-         long_clip, ladder),
-        ("e: int8, 20 s, beam 1, temperature 0", short_clip, greedy),
-    ], cfg.n_vocab)
-    print(f"main path counts, int8 (d-e): {int8}")
-    check_counts(int8, per_step=("k2", "k4_int8"), idle=("k1", "k4_bf16"), cfg=cfg)
-    return bf16, int8
+    runs = {"bf16": bf16}
+    for key, compute_type, requests, per_step, per_encode in (
+        ("int8", "int8", [
+            ("d: int8, 45 s, language detection, beam 5, temperature ladder, timestamps",
+             long_clip, ladder),
+            ("e: int8, 20 s, beam 1, temperature 0", short_clip, greedy),
+        ], ("k2", "k4_int8"), "k3"),
+        ("f32", "float32", [("f: float32, 20 s, beam 1, temperature 0", short_clip, greedy)],
+         ("k1_f32", "k4_f32"), "k3_f32"),
+        ("int8_f32", "int8_float32",
+         [("g: int8_float32, 20 s, beam 1, temperature 0", short_clip, greedy)],
+         ("k2_f32", "k4_int8_f32"), "k3_f32"),
+    ):
+        del model
+        t0 = time.perf_counter()
+        model = WhisperModel.from_parts(params, cfg, tok, compute_type=compute_type)
+        torch.cuda.synchronize()
+        print(f"large-v3-turbo at compute_type={compute_type!r} on the card: "
+              f"{time.perf_counter() - t0:.3f} s")
+        counts = run_requests(model, requests, cfg.n_vocab)
+        print(f"main path counts, {compute_type} ({', '.join(r[0][0] for r in requests)}): {counts}")
+        check_counts(counts, per_step=per_step, per_encode=per_encode, cfg=cfg)
+        runs[key] = counts
+    return runs
 
 
 def check_segments(segments, info, duration, n_vocab):
@@ -568,11 +684,12 @@ def check_segments(segments, info, duration, n_vocab):
 
 
 def check_small_model_against_cpu():
-    """The card's path against the same weights in float32 on the CPU
-    (plain versions) on a small input, at bf16 (K3 in the encoder) and at
-    int8 (the card's int8 product, against ``int8_float32`` on the CPU):
-    encoder states, and the language probabilities of the first decoder
-    step, within the bf16 tolerance of their largest value."""
+    """The card's path against the same weights on the CPU (plain versions)
+    on a small input: at bf16 and at float32 against float32 on the CPU, at
+    int8 and at int8_float32 against int8_float32 on the CPU (the card's
+    int8 product): encoder states, and the language probabilities of the
+    first decoder step, within the tolerance of the card's type times their
+    largest value."""
     from faster_whisper_tpu_torch.models.config import WhisperConfig
     from faster_whisper_tpu_torch.models.load import random_params
     from faster_whisper_tpu_torch.testing import build_synthetic_tokenizer, synthetic_vocab_size
@@ -586,7 +703,14 @@ def check_small_model_against_cpu():
     cpu = random_params(cfg, seed=5, dtype=torch.float32, device="cpu")
     tok = build_synthetic_tokenizer()
     audio = synth_audio(12.0, seed=3)
-    for card_type, cpu_type in (("bfloat16", "float32"), ("int8", "int8_float32")):
+    # int8 activation quantization turns float32 noise into whole code
+    # steps, so the int8 types are held to the bf16 tolerances.
+    for card_type, cpu_type, enc_rel, prob_rel in (
+        ("bfloat16", "float32", 3 * BF16_REL_TOL, BF16_REL_TOL),
+        ("int8", "int8_float32", 3 * BF16_REL_TOL, BF16_REL_TOL),
+        ("float32", "float32", F32_MODEL_TOL, F32_MODEL_TOL),
+        ("int8_float32", "int8_float32", 3 * BF16_REL_TOL, BF16_REL_TOL),
+    ):
         m_cpu = WhisperModel.from_parts(cpu, cfg, tok, compute_type=cpu_type, device="cpu")
         m_gpu = WhisperModel.from_parts(cpu, cfg, tok, compute_type=card_type, device="cuda")
         feats = m_cpu.feature_extractor(audio)[:, :3000]
@@ -594,7 +718,7 @@ def check_small_model_against_cpu():
         x_cpu = m_cpu.encode(feats)
         x_gpu = m_gpu.encode(feats)
         err = (x_gpu.float().cpu() - x_cpu).abs().max().item()
-        tol = 3 * BF16_REL_TOL * x_cpu.abs().max().item()
+        tol = enc_rel * x_cpu.abs().max().item()
         print(f"small model encoder, card {card_type} vs CPU {cpu_type}: max|err| {err:.3e} "
               f"(tolerance {tol:.3e})")
         if not err <= tol:
@@ -603,7 +727,7 @@ def check_small_model_against_cpu():
         p_gpu = m_gpu.model.detect_language(x_gpu)[0]
         d = max(abs(p_cpu[k] - p) for k, p in p_gpu)
         top = max(p_cpu.values())
-        tol = BF16_REL_TOL * top
+        tol = prob_rel * top
         print(f"small model language probabilities, card {card_type} vs CPU {cpu_type}: max|diff| "
               f"{d:.3e} (tolerance {tol:.3e}; CPU probabilities span "
               f"{min(p_cpu.values()):.3e}..{top:.3e})")
@@ -611,6 +735,17 @@ def check_small_model_against_cpu():
             raise AssertionError(
                 f"language probabilities on the card ({card_type}) disagree with the CPU reference"
             )
+
+
+def _fmt(x):
+    return "n/a" if x is None else f"{x:.4f} ms"
+
+
+def print_times(label, t, card):
+    print(f"{label} {t['shape']}: kernel {t['ms']:.4f} ms warm, {t['cold_ms']:.4f} ms L2 cold, "
+          f"{t['call_ms']:.4f} ms per call from the host; plain {t['plain_ms']:.4f} ms; "
+          f"library {_fmt(t['library_ms'])} warm, {_fmt(t['library_cold_ms'])} L2 cold; "
+          f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) on {card}")
 
 
 def main():
@@ -630,57 +765,76 @@ def main():
     phase("build", t0)
 
     t0 = time.perf_counter()
-    k1_err = check_beam_attention()
-    k2_err, k2_codes = check_beam_attention_int8()
-    k3_err = check_flash_attention()
-    k4_err = check_cross_attention()
-    print(f"K2 codes that differ from the plain version's by one unit: {k2_codes}")
+    f32 = torch.float32
+    errs = {
+        "K1": check_beam_attention(),
+        "K1 f32": check_beam_attention(dtype=f32),
+        "K3": check_flash_attention(),
+        "K3 f32": check_flash_attention(dtype=f32),
+    }
+    errs["K2"], k2_codes = check_beam_attention_int8()
+    errs["K2 f32"], k2_codes_f32 = check_beam_attention_int8(dtype=f32)
+    for form, err in check_cross_attention().items():
+        errs[f"K4 {form}"] = err
+    print(f"K2 codes that differ from the plain version's by one unit: {k2_codes} (bf16), "
+          f"{k2_codes_f32} (f32)")
     phase("kernels against plain versions", t0)
 
     t0 = time.perf_counter()
     times = {
         "K1": time_beam_attention(),
+        "K1 f32": time_beam_attention(dtype=f32),
         "K2": time_beam_attention(quant=True),
+        "K2 f32": time_beam_attention(quant=True, dtype=f32),
         "K3": time_flash_attention(),
+        "K3 f32": time_flash_attention(dtype=f32),
         "K4 bf16": time_cross_attention(quant=False),
         "K4 int8": time_cross_attention(quant=True),
+        "K4 f32": time_cross_attention(quant=False, dtype=f32),
+        "K4 int8 f32": time_cross_attention(quant=True, dtype=f32),
     }
     for label, t in times.items():
-        lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
-        print(f"{label} {t['shape']}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-              f"library {lib}, bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
-              f"{t['call_ms']:.4f} ms per call from the host on {card}")
-    k3_b8 = time_flash_attention(B=8)
-    print(f"K3 {k3_b8['shape']}: kernel {k3_b8['ms']:.4f} ms, library {k3_b8['library_ms']:.4f} ms, "
-          f"bound {k3_b8['bound_ms']:.4f} ms on {card}")
-    k1_b5 = time_beam_attention(B=5, pos=223)
-    print(f"K1 {k1_b5['shape']}: kernel {k1_b5['ms']:.4f} ms, bound {k1_b5['bound_ms']:.4f} ms on {card}")
+        print_times(label, t, card)
+    print_times("K3", time_flash_attention(B=8), card)
+    for quant in (False, True):
+        print_times("K4", time_cross_attention(quant, B=8), card)
+    print_times("K1", time_beam_attention(B=5, pos=223), card)
     phase("times", t0)
 
     t0 = time.perf_counter()
-    bf16, int8 = run_main_path()
+    runs = run_main_path()
     phase("main path", t0)
     t0 = time.perf_counter()
     check_small_model_against_cpu()
     phase("small model against the CPU", t0)
 
-    def entry(name, label, source, replaces, launches, err):
+    def entry(name, label, source, replaces, launches):
         t = times[label]
         return dict(name=name, route="cuda", source=f"faster_whisper_tpu_torch/csrc/{source}",
-                    replaces=replaces, launches=launches, max_abs_err=err,
-                    **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+                    replaces=replaces, launches=launches, max_abs_err=errs[label],
+                    **{k: t[k] for k in ("ms", "cold_ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")})
 
+    bf16, int8, fp32, int8_f32 = (runs[k] for k in ("bf16", "int8", "f32", "int8_f32"))
     kernels = [
-        entry("beam_attend_append bf16 (K1)", "K1", "beam_attention.cu", K1_REPLACES,
-              bf16["k1"], k1_err),
-        entry("beam_attend_append int8 (K2)", "K2", "beam_attention.cu", K2_REPLACES,
-              int8["k2"], k2_err),
-        entry("mha_flash (K3)", "K3", "flash_attention.cu", K3_REPLACES,
-              bf16["k3"] + int8["k3"], k3_err),
+        entry("beam_attend_append bf16 (K1)", "K1", "beam_attention.cu", K1_REPLACES, bf16["k1"]),
+        entry("beam_attend_append f32 (K1)", "K1 f32", "beam_attention.cu", K1_REPLACES,
+              fp32["k1_f32"]),
+        entry("beam_attend_append int8 (K2)", "K2", "beam_attention.cu", K2_REPLACES, int8["k2"]),
+        entry("beam_attend_append int8, f32 activations (K2)", "K2 f32", "beam_attention.cu",
+              K2_REPLACES, int8_f32["k2_f32"]),
+        entry("mha_flash bf16 (K3)", "K3", "flash_attention.cu", K3_REPLACES,
+              bf16["k3"] + int8["k3"]),
+        entry("mha_flash f32 (K3)", "K3 f32", "flash_attention.cu", K3_REPLACES,
+              fp32["k3_f32"] + int8_f32["k3_f32"]),
         entry("cross_attend bf16 (K4a)", "K4 bf16", "cross_attention.cu", K4A_REPLACES,
-              bf16["k4_bf16"], k4_err["bf16"]),
+              bf16["k4_bf16"]),
+        entry("cross_attend f32 (K4a)", "K4 f32", "cross_attention.cu", K4A_REPLACES,
+              fp32["k4_f32"]),
         entry("cross_attend int8 (K4b, K4c)", "K4 int8", "cross_attention.cu", K4B_REPLACES,
-              int8["k4_int8"], k4_err["int8"]),
+              int8["k4_int8"]),
+        entry("cross_attend int8, f32 activations (K4b, K4c)", "K4 int8 f32", "cross_attention.cu",
+              K4B_REPLACES, int8_f32["k4_int8_f32"]),
     ]
     print(f"[phase] total: {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,7 @@
 // K1 and K2: one decode step of beam self-attention with in-place KV-cache
-// append, over a bf16 cache (K1) or an int8 cache with per-row scales (K2).
+// append, over a raw cache (K1) or an int8 cache with per-row scales (K2),
+// with activations (q, the new K/V rows, the output; K1's cache too) in
+// bfloat16 or float32.
 //
 // K1 replaces faster_whisper_tpu/ops/beam_attention.py::_kernel_bf16 and K2
 // replaces ::_kernel_quant (both launched by beam_attend_append).
@@ -12,12 +14,13 @@
 //     the ancestry mask anc[b,k,c] == j AND c <= pos: for every column c
 //     exactly one slot, anc[b,k,c], is visible, so the softmax runs over
 //     pos+1 gathered columns;
-//   * q is scaled in f32 and rounded to bf16 before QK, scores and softmax
-//     are f32, the weights are rounded to bf16 before PV, PV accumulates in
-//     f32 and the output is bf16.
+//   * q is scaled in f32 and rounded to the activation type before QK,
+//     scores and softmax are f32, the weights are rounded to the activation
+//     type before PV, PV accumulates in f32 and the output is in the
+//     activation type (in float32 nothing is rounded).
 //
 // K2 only: the int8 cache holds codes (L, B, H, K, ctx, D) and bf16 scales
-// (L, B, H, K, ctx).  The new K/V row of each (beam, head) is quantized
+// (L, B, H, K, ctx), in float32 runs too, as the JAX package stores them.  The new K/V row of each (beam, head) is quantized
 // with s = max(max|x| * (1/127), 1e-10) and code = clamp(rint(x / s), -127,
 // 127), and s is stored rounded to bf16.  These are the plain version's
 // float32 operations (ops/quant.py::quantize_kv): the scale is a product
@@ -25,7 +28,7 @@
 // max|x| / 127, the code a true division, rint rounds half to even as
 // torch.round does.  Attention
 // dequantizes in registers: a score is (q . codes) * bf16 scale, a PV
-// weight is rounded to bf16 after the V scale is folded in.  The new
+// weight is rounded to the activation type after the V scale is folded in.  The new
 // column enters with the bf16-rounded scale the plain version reads back
 // from the cache (the TPU kernel used the unrounded one).  Unlike the TPU
 // kernel, q and the weights are not quantized: the TPU did that for the
@@ -58,8 +61,8 @@ constexpr int K1_THREADS = 256;
 constexpr int K1_NSPLIT = 4;
 constexpr int K1_BATCH = 8;  // PV columns whose loads are in flight together
 
-// Dot of a cache row with the f32 query row qk, with 16-byte loads: 8 bf16
-// or 16 int8 values (codes, unscaled) per load.
+// Dot of a cache row with the f32 query row qk, with 16-byte loads: 8 bf16,
+// 4 f32 or 16 int8 values (codes, unscaled) per load.
 // qk is 16-byte aligned and read as float4.
 __device__ __forceinline__ float row_dot(const __nv_bfloat16* row, const float* qk, int D) {
   const uint4* r = reinterpret_cast<const uint4*>(row);
@@ -76,6 +79,19 @@ __device__ __forceinline__ float row_dot(const __nv_bfloat16* row, const float* 
       float2 f = __bfloat1622float2(pr[e]);
       acc += qv[2 * e] * f.x + qv[2 * e + 1] * f.y;
     }
+  }
+  return acc;
+}
+
+__device__ __forceinline__ float row_dot(const float* row, const float* qk, int D) {
+  const float4* r = reinterpret_cast<const float4*>(row);
+  const float4* q4 = reinterpret_cast<const float4*>(qk);
+  float acc = 0.f;
+#pragma unroll 8
+  for (int d4 = 0; d4 < D / 4; ++d4) {
+    const float4 x = r[d4], qq = q4[d4];
+    acc += qq.x * x.x + qq.y * x.y;
+    acc += qq.z * x.z + qq.w * x.w;
   }
   return acc;
 }
@@ -109,29 +125,47 @@ __device__ __forceinline__ float2 load_pair(const int8_t* p) {
   return make_float2((float)c.x, (float)c.y);
 }
 
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// CacheT is __nv_bfloat16 (K1) or int8_t (K2; then k_scale/v_scale are the
-// (L, B, H, K, ctx) bf16 scales, else unused).
-template <typename CacheT>
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+
+// ActT is the activation type, __nv_bfloat16 or float.  CacheT is ActT (K1)
+// or int8_t (K2; then k_scale/v_scale are the (L, B, H, K, ctx) bf16
+// scales, else unused).
+template <typename ActT, typename CacheT>
 __global__ void __launch_bounds__(K1_THREADS) beam_attend_append_kernel(
-    const __nv_bfloat16* __restrict__ q,      // (B, H, K, D)
-    const __nv_bfloat16* __restrict__ k_new,  // (B, H, K, D)
-    const __nv_bfloat16* __restrict__ v_new,  // (B, H, K, D)
+    const ActT* __restrict__ q,      // (B, H, K, D)
+    const ActT* __restrict__ k_new,  // (B, H, K, D)
+    const ActT* __restrict__ v_new,  // (B, H, K, D)
     CacheT* k_cache,                          // (L, B, H, K, ctx, D)
     __nv_bfloat16* k_scale,                   // (L, B, H, K, ctx), K2 only
     CacheT* v_cache,                          // (L, B, H, K, ctx, D)
     __nv_bfloat16* v_scale,                   // (L, B, H, K, ctx), K2 only
     const int* __restrict__ anc,              // (B, K, ctx)
     const int* __restrict__ pos_row,          // (B,)
-    __nv_bfloat16* __restrict__ out,          // (B, H, K, D)
+    ActT* __restrict__ out,                   // (B, H, K, D)
     int B, int H, int K, int ctx, int D, int layer, float d_scale) {
   constexpr bool kQuant = std::is_same<CacheT, int8_t>::value;
+  // Rounds to the activation type where the plain version casts to it.
+  auto act_round = [](float x) {
+    if constexpr (std::is_same<ActT, float>::value) {
+      return x;
+    } else {
+      return bf16_round(x);
+    }
+  };
   extern __shared__ float4 smem4[];  // 16-byte aligned: q rows are read as float4
   float* smem = reinterpret_cast<float*>(smem4);
-  float* qs = smem;              // K*D   q * d_scale, rounded to bf16
+  float* qs = smem;              // K*D   q * d_scale, rounded to ActT
   float* kn = qs + K * D;        // K*D   new K rows (K2: their codes)
   float* vn = kn + K * D;        // K*D   new V rows (K2: their codes)
   float* part = vn + K * D;      // K1_NSPLIT*K*D   PV partial sums
@@ -160,9 +194,9 @@ __global__ void __launch_bounds__(K1_THREADS) beam_attend_append_kernel(
   if constexpr (kQuant) {
     // One warp per new (beam, head) row: its scale from max|x| over D.
     for (int j = warp; j < 2 * K; j += nwarps) {
-      const __nv_bfloat16* src = (j < K ? k_new : v_new) + (row0 + j % K) * D;
+      const ActT* src = (j < K ? k_new : v_new) + (row0 + j % K) * D;
       float m = 0.f;
-      for (int d = lane; d < D; d += 32) m = fmaxf(m, fabsf(__bfloat162float(src[d])));
+      for (int d = lane; d < D; d += 32) m = fmaxf(m, fabsf(to_f32(src[d])));
       for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
       if (lane == 0) {
         const float s = fmaxf(m * (1.f / 127.f), 1e-10f);
@@ -174,10 +208,10 @@ __global__ void __launch_bounds__(K1_THREADS) beam_attend_append_kernel(
   }
 
   for (int i = tid; i < K * D; i += blockDim.x) {
-    float qv = __bfloat162float(q[row0 * D + i]) * d_scale;
-    qs[i] = bf16_round(qv);
-    float kv = __bfloat162float(k_new[row0 * D + i]);
-    float vv = __bfloat162float(v_new[row0 * D + i]);
+    float qv = to_f32(q[row0 * D + i]) * d_scale;
+    qs[i] = act_round(qv);
+    float kv = to_f32(k_new[row0 * D + i]);
+    float vv = to_f32(v_new[row0 * D + i]);
     if constexpr (kQuant) {
       kv = fminf(fmaxf(rintf(kv / kns_raw[i / D]), -127.f), 127.f);
       vv = fminf(fmaxf(rintf(vv / vns_raw[i / D]), -127.f), 127.f);
@@ -212,7 +246,7 @@ __global__ void __launch_bounds__(K1_THREADS) beam_attend_append_kernel(
   __syncthreads();
 
   // Softmax in f32, one warp per query; K2 folds the V scales in; the
-  // weights are rounded to bf16.
+  // weights are rounded to the activation type.
   for (int k = warp; k < K; k += nwarps) {
     float* pk = p + k * n;
     float m = -INFINITY;
@@ -233,7 +267,7 @@ __global__ void __launch_bounds__(K1_THREADS) beam_attend_append_kernel(
           w *= c == pos ? vns[j]
                         : __bfloat162float(v_scale[srow0 + (size_t)j * ctx + c]);
       }
-      pk[c] = bf16_round(w);
+      pk[c] = act_round(w);
     }
   }
   __syncthreads();
@@ -284,7 +318,7 @@ __global__ void __launch_bounds__(K1_THREADS) beam_attend_append_kernel(
     float acc = 0.f;
 #pragma unroll
     for (int sp = 0; sp < K1_NSPLIT; ++sp) acc += part[sp * K * D + i];
-    out[row0 * D + i] = __float2bfloat16(acc);
+    store(out + row0 * D + i, acc);
   }
 
   // Append: column pos of every slot of this (layer, b, h), after all reads.
@@ -312,7 +346,7 @@ int smem_bytes(int K, int ctx, int D) {
   return (int)(sizeof(float) * ((3 + K1_NSPLIT) * K * D + K * ctx + 4 * K));
 }
 
-template <typename CacheT>
+template <typename ActT, typename CacheT>
 int launch(const void* q, const void* k_new, const void* v_new, void* k_cache,
            void* k_scale, void* v_cache, void* v_scale, const void* anc,
            const void* pos_row, void* out, int B, int H, int K, int ctx, int D,
@@ -322,15 +356,14 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_cache,
   const int smem = smem_bytes(K, ctx, D);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        beam_attend_append_kernel<CacheT>,
+        beam_attend_append_kernel<ActT, CacheT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  beam_attend_append_kernel<CacheT><<<B * H, K1_THREADS, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_new,
-      (const __nv_bfloat16*)v_new, (CacheT*)k_cache, (__nv_bfloat16*)k_scale,
-      (CacheT*)v_cache, (__nv_bfloat16*)v_scale, (const int*)anc,
-      (const int*)pos_row, (__nv_bfloat16*)out, B, H, K, ctx, D, layer, d_scale);
+  beam_attend_append_kernel<ActT, CacheT><<<B * H, K1_THREADS, smem, (cudaStream_t)stream>>>(
+      (const ActT*)q, (const ActT*)k_new, (const ActT*)v_new, (CacheT*)k_cache,
+      (__nv_bfloat16*)k_scale, (CacheT*)v_cache, (__nv_bfloat16*)v_scale, (const int*)anc,
+      (const int*)pos_row, (ActT*)out, B, H, K, ctx, D, layer, d_scale);
   return (int)cudaGetLastError();
 }
 
@@ -340,9 +373,17 @@ extern "C" int fwt_beam_attend_append_bf16(
     const void* q, const void* k_new, const void* v_new, void* k_cache,
     void* v_cache, const void* anc, const void* pos_row, void* out, int B,
     int H, int K, int ctx, int D, int layer, float d_scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k_new, v_new, k_cache, nullptr, v_cache,
-                               nullptr, anc, pos_row, out, B, H, K, ctx, D,
-                               layer, d_scale, stream);
+  return launch<__nv_bfloat16, __nv_bfloat16>(q, k_new, v_new, k_cache, nullptr, v_cache,
+                                              nullptr, anc, pos_row, out, B, H, K, ctx, D,
+                                              layer, d_scale, stream);
+}
+
+extern "C" int fwt_beam_attend_append_f32(
+    const void* q, const void* k_new, const void* v_new, void* k_cache,
+    void* v_cache, const void* anc, const void* pos_row, void* out, int B,
+    int H, int K, int ctx, int D, int layer, float d_scale, void* stream) {
+  return launch<float, float>(q, k_new, v_new, k_cache, nullptr, v_cache, nullptr, anc,
+                              pos_row, out, B, H, K, ctx, D, layer, d_scale, stream);
 }
 
 extern "C" int fwt_beam_attend_append_int8(
@@ -350,7 +391,16 @@ extern "C" int fwt_beam_attend_append_int8(
     void* k_scale, void* v_codes, void* v_scale, const void* anc,
     const void* pos_row, void* out, int B, int H, int K, int ctx, int D,
     int layer, float d_scale, void* stream) {
-  return launch<int8_t>(q, k_new, v_new, k_codes, k_scale, v_codes, v_scale,
-                        anc, pos_row, out, B, H, K, ctx, D, layer, d_scale,
-                        stream);
+  return launch<__nv_bfloat16, int8_t>(q, k_new, v_new, k_codes, k_scale, v_codes, v_scale,
+                                       anc, pos_row, out, B, H, K, ctx, D, layer, d_scale,
+                                       stream);
+}
+
+extern "C" int fwt_beam_attend_append_int8_f32(
+    const void* q, const void* k_new, const void* v_new, void* k_codes,
+    void* k_scale, void* v_codes, void* v_scale, const void* anc,
+    const void* pos_row, void* out, int B, int H, int K, int ctx, int D,
+    int layer, float d_scale, void* stream) {
+  return launch<float, int8_t>(q, k_new, v_new, k_codes, k_scale, v_codes, v_scale, anc,
+                               pos_row, out, B, H, K, ctx, D, layer, d_scale, stream);
 }

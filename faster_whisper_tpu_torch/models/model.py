@@ -3,7 +3,7 @@
 Counterpart of ``faster_whisper_tpu/models/model.py``.  Parameters are the
 nested dict of ``models/load.py`` with layers stacked along a leading axis;
 the layers run in a Python loop over views of that axis.  Matmuls run in
-the parameter dtype (bf16 on the card) with f32 where the JAX package asks
+the parameter dtype (bf16 or float32) with f32 where the JAX package asks
 for it: layernorm statistics, attention scores and softmax, and the final
 logits.  Encoder self-attention goes through ``mha_full`` (kernel K3 on the
 card); decode self- and cross-attention live in ``generation/generate.py``

@@ -9,15 +9,16 @@ ancestry mask ``anc[b, k, c] == j AND c <= pos`` with one joint softmax
 ``anc[b, k, c]``, so beam re-parenting permutes ``anc`` and never the
 cache).
 
-The cache is either raw (bf16 on the card) or int8 (``QuantKV``: codes
+The cache is either raw (in q's dtype) or int8 (``QuantKV``: codes
 (L, B, H, K, ctx, D) int8 and per-row scales (L, B, H, K, ctx), bf16 on
 the card).  On the int8 cache the step's K/V are quantized per (beam,
 head) row (scale max|x|/127, stored in the scale dtype) before they are
 written, and the scales fold into the scores and the PV weights.
 
 ``beam_attend_append`` runs the hand-written CUDA kernels K1 (raw cache)
-and K2 (int8 cache) of ``csrc/beam_attention.cu`` on CUDA tensors and
-their plain version ``beam_attend_append_ref`` on CPU tensors.
+and K2 (int8 cache) of ``csrc/beam_attention.cu``, each with bfloat16 or
+float32 activations, on CUDA tensors and their plain version
+``beam_attend_append_ref`` on CPU tensors.
 
 Unlike the JAX functions, both update the cache tensors IN PLACE (the TPU
 kernel aliased them too, but JAX returns new arrays); they return the same
@@ -48,9 +49,11 @@ def beam_attend_append(
 ):
     """Returns (attn (B, H, K, D) in q.dtype, self_k, self_v).
 
-    On a CUDA tensor: K1 (raw bf16 cache) or K2 (``QuantKV`` cache, int8
-    codes and bf16 scales), launched on the current stream and counted in
-    ``beam_attend_append.launches`` (K1) or ``.launches_int8`` (K2); both
+    On a CUDA tensor: K1 (raw cache in q's dtype) or K2 (``QuantKV``
+    cache, int8 codes and bf16 scales), with bfloat16 or float32 q, k_new
+    and v_new, launched on the current stream and counted in
+    ``beam_attend_append.launches`` (K1), ``.launches_f32`` (K1, float32),
+    ``.launches_int8`` (K2) or ``.launches_int8_f32`` (K2, float32); all
     write every beam at ``pos_row`` and ignore ``pos_bk``, which differs
     from the plain version only in the slots of finished sampling beams,
     whose outputs are never read (as with the TPU kernels).  Requires
@@ -70,13 +73,15 @@ def beam_attend_append(
         raise ValueError(
             f"beam_attend_append: cache must be (L,B,H,K,ctx,D), got {tuple(codes_k.shape)}"
         )
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"beam_attend_append: q is {q.dtype}, the kernel takes bfloat16 or float32")
     n_layer, ctx = codes_k.shape[0], codes_k.shape[4]
     cache_shape = (n_layer, b, h, k, ctx, d)
     bhk = (b, h, k, d)
     checks = [
-        ("q", q, bhk, torch.bfloat16),
-        ("k_new", k_new, bhk, torch.bfloat16),
-        ("v_new", v_new, bhk, torch.bfloat16),
+        ("q", q, bhk, q.dtype),
+        ("k_new", k_new, bhk, q.dtype),
+        ("v_new", v_new, bhk, q.dtype),
         ("anc", anc, (b, k, ctx), torch.int32),
         ("pos_row", pos_row, (b,), torch.int32),
     ]
@@ -89,8 +94,8 @@ def beam_attend_append(
         ]
     else:
         checks += [
-            ("self_k", self_k, cache_shape, torch.bfloat16),
-            ("self_v", self_v, cache_shape, torch.bfloat16),
+            ("self_k", self_k, cache_shape, q.dtype),
+            ("self_v", self_v, cache_shape, q.dtype),
         ]
     for name, t, shape, dtype in checks:
         if t.device != q.device:
@@ -101,7 +106,8 @@ def beam_attend_append(
             raise ValueError(f"beam_attend_append: {name} has shape {tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"beam_attend_append: {name} is not contiguous")
-    align = 16 if quant else 8  # one 16-byte load covers 16 int8 or 8 bf16 values
+    # one 16-byte load covers 16 int8, 8 bf16 or 4 float32 values of a row
+    align = 16 if quant else 16 // q.element_size()
     if d % align or d > 256:
         raise ValueError(
             f"beam_attend_append: head dim {d} must be a multiple of {align}, at most 256"
@@ -112,30 +118,34 @@ def beam_attend_append(
     lib = _build.load("beam_attention.cu")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if quant:
-        rc = lib.fwt_beam_attend_append_int8(
-            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-            self_k.q.data_ptr(), self_k.s.data_ptr(),
-            self_v.q.data_ptr(), self_v.s.data_ptr(), anc.data_ptr(),
-            pos_row.data_ptr(), out.data_ptr(),
-            b, h, k, ctx, d, int(layer), float(d) ** -0.5, stream,
-        )
-        _build.check(rc, "beam_attend_append (int8)")
-        beam_attend_append.launches_int8 += 1
-        return out, self_k, self_v
-    rc = lib.fwt_beam_attend_append_bf16(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        self_k.data_ptr(), self_v.data_ptr(), anc.data_ptr(),
-        pos_row.data_ptr(), out.data_ptr(),
+    f32 = q.dtype == torch.float32
+    tail = (
+        anc.data_ptr(), pos_row.data_ptr(), out.data_ptr(),
         b, h, k, ctx, d, int(layer), float(d) ** -0.5, stream,
     )
+    if quant:
+        fn = lib.fwt_beam_attend_append_int8_f32 if f32 else lib.fwt_beam_attend_append_int8
+        rc = fn(
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            self_k.q.data_ptr(), self_k.s.data_ptr(),
+            self_v.q.data_ptr(), self_v.s.data_ptr(), *tail,
+        )
+    else:
+        fn = lib.fwt_beam_attend_append_f32 if f32 else lib.fwt_beam_attend_append_bf16
+        rc = fn(
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            self_k.data_ptr(), self_v.data_ptr(), *tail,
+        )
     _build.check(rc, "beam_attend_append")
-    beam_attend_append.launches += 1
+    counter = ("launches_int8" if quant else "launches") + ("_f32" if f32 else "")
+    setattr(beam_attend_append, counter, getattr(beam_attend_append, counter) + 1)
     return out, self_k, self_v
 
 
-beam_attend_append.launches = 0  # K1
-beam_attend_append.launches_int8 = 0  # K2
+beam_attend_append.launches = 0  # K1, bfloat16
+beam_attend_append.launches_f32 = 0  # K1, float32
+beam_attend_append.launches_int8 = 0  # K2, bfloat16 activations
+beam_attend_append.launches_int8_f32 = 0  # K2, float32 activations
 
 
 def beam_attend_append_ref(

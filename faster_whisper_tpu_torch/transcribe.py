@@ -95,7 +95,7 @@ _COMPUTE_TYPES = {
     "int8": torch.bfloat16,
     "int8_float16": torch.bfloat16,
     "int8_bfloat16": torch.bfloat16,
-    "int8_float32": torch.float32,  # the CPU only: the card's kernels take bf16
+    "int8_float32": torch.float32,
 }
 
 
@@ -120,9 +120,9 @@ class WhisperModel:
         tree (``models/load.py``), its config and a base tokenizer.  The
         parameters are moved to ``device`` (default the card; without one
         this raises) and cast to the compute type's dtype; the card's
-        kernels take bfloat16.  The int8 compute types then quantize the
-        cast tree (``ops/quant.py::quantize_params``) and decode over int8
-        KV caches."""
+        kernels take bfloat16 and float32.  The int8 compute types then
+        quantize the cast tree (``ops/quant.py::quantize_params``) and
+        decode over int8 KV caches."""
         from faster_whisper_tpu_torch.models.engine import WhisperEngine
         from faster_whisper_tpu_torch.ops.quant import quantize_params
 
@@ -132,10 +132,6 @@ class WhisperModel:
             raise ValueError(f"unsupported compute_type: {compute_type}")
         dev = resolve_device(device)
         dtype = _COMPUTE_TYPES[compute_type]
-        if dev.type == "cuda" and dtype != torch.bfloat16:
-            raise NotImplementedError(
-                f"compute_type={compute_type!r} on the card: the CUDA kernels take bfloat16"
-            )
 
         def move(tree):
             if isinstance(tree, dict):
@@ -222,7 +218,7 @@ class WhisperModel:
             raise NotImplementedError("vad_filter=True: the Silero VAD is " + _NOT_PORTED.format(6))
         if word_timestamps:
             raise NotImplementedError(
-                "word_timestamps=True: cross-attention alignment is " + _NOT_PORTED.format(10)
+                "word_timestamps=True: cross-attention alignment is " + _NOT_PORTED.format(7)
             )
         if not isinstance(audio, np.ndarray):
             raise TypeError(

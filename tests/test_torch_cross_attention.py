@@ -22,7 +22,7 @@ import torch
 from faster_whisper_tpu.ops.beam_attention import cross_attend as jax_cross_attend
 from faster_whisper_tpu.ops.quant import QuantKV as JaxQuantKV
 from faster_whisper_tpu.ops.quant import quantize_kv as jax_quantize_kv
-from faster_whisper_tpu_torch.ops.cross_attention import cross_attend, cross_attend_ref
+from faster_whisper_tpu_torch.ops.cross_attention import _split_plan, cross_attend, cross_attend_ref
 from faster_whisper_tpu_torch.ops.quant import QuantKV
 
 F32_TOL = 1e-5
@@ -123,6 +123,71 @@ def test_wrapper_takes_the_plain_version_for_cpu_tensors(quant):
         (kq, ks), (vq, vs) = _quant(ck.numpy(), jnp.bfloat16), _quant(cv.numpy(), jnp.bfloat16)
         ck = QuantKV(torch.from_numpy(kq), torch.from_numpy(ks).to(torch.bfloat16))
         cv = QuantKV(torch.from_numpy(vq), torch.from_numpy(vs).to(torch.bfloat16))
-    counts = (cross_attend.launches, cross_attend.launches_int8)
+    names = ("launches", "launches_f32", "launches_int8", "launches_int8_f32")
+    counts = [getattr(cross_attend, a) for a in names]
     assert torch.equal(cross_attend(1, q, ck, cv), cross_attend_ref(1, q, ck, cv))
-    assert (cross_attend.launches, cross_attend.launches_int8) == counts  # no kernel on the CPU
+    assert [getattr(cross_attend, a) for a in names] == counts  # no kernel on the CPU
+
+
+@pytest.mark.parametrize("b,h", [(1, 20), (8, 20), (1, 1), (2, 4), (5, 6)])
+def test_split_plan_covers_every_column_with_no_empty_chunk(b, h):
+    """K4's split over T: for every T from 1 to 1501 the chunks tile [0, T)
+    exactly, the last one non-empty; a chunk is a multiple of 16 columns,
+    at most 128 (one per thread of the kernel's score pass)."""
+    for t in range(1, 1502):
+        chunk, n = _split_plan(b, h, t)
+        assert 1 <= chunk <= 128 and chunk % 16 == 0, (t, chunk)
+        assert (n - 1) * chunk < t <= n * chunk, (t, chunk, n)
+        if t <= chunk:
+            assert n == 1
+    # At the main path's shape the grid holds at least two blocks per SM
+    # of an H100.
+    chunk, n = _split_plan(1, 20, 1500, n_sm=132)
+    assert n * 20 >= 2 * 132
+
+
+def _split_and_merge(layer, q, cross_k, cross_v):
+    """K4's arithmetic in plain PyTorch: per chunk of ``_split_plan`` the
+    max m, the sum l and the PV sums o of its columns (V scales folded into
+    the weights), then the merge sum_i e_i o_i / sum_i e_i l_i with
+    e_i = exp(m_i - max_j m_j)."""
+    quant = isinstance(cross_k, QuantKV)
+    b, h, _, d = q.shape
+    codes_k, codes_v = (cross_k.q, cross_v.q) if quant else (cross_k, cross_v)
+    t = codes_k.shape[3]
+    chunk, n = _split_plan(b, h, t)
+    ms, ls, os_ = [], [], []
+    for c in range(n):
+        cols = slice(c * chunk, min(t, (c + 1) * chunk))
+        s = torch.einsum("bhkd,bhtd->bhkt", q.float(), codes_k[layer][:, :, cols].float()) * d ** -0.5
+        if quant:
+            s = s * cross_k.s[layer][..., cols].float()
+        m = s.amax(-1, keepdim=True)
+        e = torch.exp(s - m)
+        w = e * cross_v.s[layer][..., cols].float() if quant else e
+        ms.append(m)
+        ls.append(e.sum(-1, keepdim=True))
+        os_.append(torch.einsum("bhkt,bhtd->bhkd", w, codes_v[layer][:, :, cols].float()))
+    m_all = torch.stack(ms).amax(0)
+    scale = [torch.exp(m - m_all) for m in ms]
+    num = sum(e * o for e, o in zip(scale, os_))
+    den = sum(e * l for e, l in zip(scale, ls))
+    return num / den
+
+
+@pytest.mark.parametrize("t", [1, 300, 1501])
+@pytest.mark.parametrize("quant", [False, True])
+def test_split_and_merge_arithmetic_matches_plain_version(quant, t):
+    """K4's chunked online softmax and merge equal ``cross_attend_ref`` at
+    float32 (sums in another order: 1e-5)."""
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((B, H, K, D)).astype(np.float32)
+    ck, cv = (rng.standard_normal((L, B, H, t, D)).astype(np.float32) for _ in range(2))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, ck, cv))
+    if quant:
+        (kq, ks), (vq, vs) = _quant(ck, jnp.bfloat16), _quant(cv, jnp.bfloat16)
+        tk = QuantKV(torch.from_numpy(kq), torch.from_numpy(ks).to(torch.bfloat16))
+        tv = QuantKV(torch.from_numpy(vq), torch.from_numpy(vs).to(torch.bfloat16))
+    ref = cross_attend_ref(1, tq, tk, tv)
+    ours = _split_and_merge(1, tq, tk, tv)
+    np.testing.assert_allclose(ours.numpy(), ref.numpy(), atol=F32_TOL, rtol=F32_TOL)

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: build them from ``csrc/`` with
-nvcc, then hold K1, K2, K3 and both forms of K4 against their plain
-versions at the main path's shapes (``chip_smoke.py`` phases 2 and 3).  Skips without a card; on the
-card run
+nvcc, then hold every form of K1, K2, K3 and K4 (bfloat16 and float32
+activations, raw and int8 caches) against their plain versions at the
+main path's shapes and at ragged ones (``chip_smoke.py`` phases 2 and 3),
+and a small model at every compute type against the CPU.  Skips without
+a card; on the card run
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -36,17 +38,42 @@ def test_beam_attention_kernel_matches_plain_version(card):
     assert chip_smoke.check_beam_attention() >= 0.0
 
 
+def test_float32_beam_attention_kernel_matches_plain_version(card):
+    assert chip_smoke.check_beam_attention(dtype=torch.float32) >= 0.0
+
+
 def test_int8_beam_attention_kernel_matches_plain_version(card):
     err, _codes_one_unit_apart = chip_smoke.check_beam_attention_int8()
     assert err >= 0.0
 
 
+def test_int8_beam_attention_kernel_with_float32_activations_matches_plain_version(card):
+    err, _codes_one_unit_apart = chip_smoke.check_beam_attention_int8(dtype=torch.float32)
+    assert err >= 0.0
+
+
+K3_SHAPES = dict(batches=(1, 8), Ss=(1, 63, 128, 1500, 1501))
+
+
 def test_flash_attention_kernel_matches_plain_version(card):
-    assert chip_smoke.check_flash_attention() >= 0.0
+    assert chip_smoke.check_flash_attention(**K3_SHAPES) >= 0.0
+
+
+def test_float32_flash_attention_kernel_matches_plain_version(card):
+    assert chip_smoke.check_flash_attention(**K3_SHAPES, dtype=torch.float32) >= 0.0
 
 
 def test_cross_attention_kernel_matches_plain_version(card):
-    assert set(chip_smoke.check_cross_attention()) == {"bf16", "int8"}
+    """Every form at ragged and full T, 1 to 16 beams, two calls back to
+    back and two layers in one CUDA graph."""
+    worst = chip_smoke.check_cross_attention(
+        batches=(1, 8), Ts=(1, 100, 1500, 1501), Ks=(1, 5, 16), L=2
+    )
+    assert set(worst) == {"bf16", "int8", "f32", "int8 f32"}
+
+
+def test_small_model_on_the_card_matches_the_cpu_at_every_compute_type(card):
+    chip_smoke.check_small_model_against_cpu()
 
 
 def test_int8_dense_on_the_card_matches_the_cpu(card):
@@ -70,11 +97,14 @@ def test_wrappers_count_launches_and_reject_what_the_kernels_do_not_take(card):
     from faster_whisper_tpu_torch.ops.beam_attention import beam_attend_append
 
     q, k, v = chip_smoke.k3_inputs(1, S=100)
-    n = mha_flash.launches
+    n = (mha_flash.launches, mha_flash.launches_f32)
     mha_flash(q, k, v)
-    assert mha_flash.launches == n + 1
+    mha_flash(q.float(), k.float(), v.float())
+    assert (mha_flash.launches, mha_flash.launches_f32) == (n[0] + 1, n[1] + 1)
     with pytest.raises(TypeError):
-        mha_flash(q.float(), k.float(), v.float())
+        mha_flash(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        mha_flash(q, k.float(), v)
     with pytest.raises(ValueError):
         mha_flash(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
 
@@ -100,14 +130,20 @@ def test_wrappers_count_launches_and_reject_what_the_kernels_do_not_take(card):
 
     from faster_whisper_tpu_torch.ops.cross_attention import cross_attend
 
-    for quant in (False, True):
-        layer, q, ck, cv = chip_smoke.k4_inputs(1, quant, T=100)
-        n = (cross_attend.launches, cross_attend.launches_int8)
+    names = ("launches", "launches_f32", "launches_int8", "launches_int8_f32")
+    for quant, dtype, counter in (
+        (False, torch.bfloat16, "launches"), (False, torch.float32, "launches_f32"),
+        (True, torch.bfloat16, "launches_int8"), (True, torch.float32, "launches_int8_f32"),
+    ):
+        layer, q, ck, cv = chip_smoke.k4_inputs(1, quant, T=100, dtype=dtype)
+        n = {a: getattr(cross_attend, a) for a in names}
         cross_attend(layer, q, ck, cv)
-        assert (cross_attend.launches, cross_attend.launches_int8) == (
-            n[0] + (not quant), n[1] + quant,
-        )
+        assert {a: getattr(cross_attend, a) for a in names} == {a: n[a] + (a == counter) for a in names}
         with pytest.raises(TypeError):
-            cross_attend(layer, q.float(), ck, cv)
+            cross_attend(layer, q.half(), ck, cv)
         with pytest.raises(ValueError):  # more beams than the kernel holds
             cross_attend(layer, q.repeat(1, 1, 4, 1), ck, cv)
+        if not quant:
+            with pytest.raises(TypeError):  # a raw cache in another dtype than q
+                other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+                cross_attend(layer, q, ck.to(other), cv.to(other))

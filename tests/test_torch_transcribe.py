@@ -104,21 +104,32 @@ def test_fallback_ladder_samples_and_yields_well_formed_segments(models):
         assert s.temperature in (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
 
 
-def test_options_outside_the_slice_raise(models):
-    _, pm = models
+@pytest.mark.parametrize(
+    "option,item",
+    [("vad_filter", 6), ("word_timestamps", 7), ("int4", 11), ("checkpoint", 10)],
+)
+def test_options_outside_the_slice_raise(weights, option, item):
+    """Each refusal names its own ROADMAP.md Queue 1 item."""
+    pm = WhisperModel.from_parts(
+        params_from_jax(jax.tree.map(np.asarray, weights), device="cpu"),
+        tiny_test_config(), build_synthetic_tokenizer(), compute_type="float32", device="cpu",
+    )
     audio = synth_audio(1.0, seed=3)
-    for kwargs in (dict(vad_filter=True), dict(word_timestamps=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pm.transcribe(audio, **kwargs)
-    with pytest.raises(TypeError):
-        pm.transcribe("speech.flac")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        WhisperModel.from_parts(
-            pm.model.params, tiny_test_config(), build_synthetic_tokenizer(),
-            compute_type="int4", device="cpu",
-        )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        WhisperModel("large-v3")
+    match = rf"\(ROADMAP\.md, Queue 1 item {item}\)"
+    if option in ("vad_filter", "word_timestamps"):
+        with pytest.raises(NotImplementedError, match=match):
+            pm.transcribe(audio, **{option: True})
+    elif option == "int4":
+        with pytest.raises(NotImplementedError, match=match):
+            WhisperModel.from_parts(
+                pm.model.params, tiny_test_config(), build_synthetic_tokenizer(),
+                compute_type="int4", device="cpu",
+            )
+    else:  # checkpoints and audio files
+        with pytest.raises(TypeError, match=match):
+            pm.transcribe("speech.flac")
+        with pytest.raises(NotImplementedError, match=match):
+            WhisperModel("large-v3")
 
 
 @pytest.mark.parametrize("base_vocab", [256, 50257])
