@@ -12,10 +12,12 @@ Phases, each printing its own line with its seconds:
    ``-Xptxas -v`` register and shared-memory lines;
 3. kernels: holds each kernel form against its plain PyTorch version on
    the card, at the main path's shapes, in bfloat16 and in float32: K1 and
-   K2 (beam self-attention over a raw and an int8 cache), K3 (encoder
-   flash attention), K4 over a raw
-   and an int8 cache (decode cross-attention; two calls back to back and
-   two layers in one CUDA graph, which reuse its ticket counters);
+   K2 (beam self-attention over a raw and an int8 cache, with the write
+   position on and beside the column chunks' boundaries, and two layers in
+   one CUDA graph, which reuse its ticket counters), K3 (encoder flash
+   attention, at ragged and full lengths), K4 over a raw and an int8 cache
+   (decode cross-attention; two calls back to back and two layers in one
+   CUDA graph);
 4. times: each kernel form, its plain version and, where one exists, the
    one PyTorch call that computes the same function, on the card (CUDA
    events around the replay of a CUDA graph of 20 calls, L2 warm), each
@@ -51,6 +53,7 @@ import torch
 # Published peaks of one H100 SXM (dense, at its 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
+TF32_TENSOR_FLOPS = 495e12
 F32_FLOPS = 67e12
 
 BF16_REL_TOL = 2e-2  # of the output scale: one bf16 rounding of P and of the output
@@ -149,22 +152,35 @@ def _clone(cache):
     return cache.clone()
 
 
-def _k1_call(fn, x, caches=None):
+def _k1_call(fn, x, caches=None, layer=None):
     sk, sv = caches if caches is not None else (_clone(x["self_k"]), _clone(x["self_v"]))
-    return fn(x["layer"], x["pos_row"], x["q"], x["k_new"], x["v_new"], sk, sv, x["anc"])
+    layer = x["layer"] if layer is None else layer
+    return fn(layer, x["pos_row"], x["q"], x["k_new"], x["v_new"], sk, sv, x["anc"])
 
 
-def check_beam_attention(shapes=((1, 0), (1, 17), (1, 447), (8, 0), (8, 17), (8, 447)),
-                         dtype=torch.bfloat16):
-    """K1 in ``dtype`` against its plain version: the attention output
-    within the dtype's tolerance, and the caches: the target column of every
-    slot holds the new K/V, every other element is untouched.  Returns the
-    max abs error."""
+def beam_positions(B, quant, dtype, K=5, H=20, D=64, ctx=448):
+    """(B, pos) for the K1/K2 checks: the first two columns (most chunks
+    empty), the last, and the columns on and beside the first chunk
+    boundary of the kernel's plan at this shape."""
+    from faster_whisper_tpu_torch.ops.beam_attention import _split_plan
+
+    row_bytes = D * (1 if quant else torch.finfo(dtype).bits // 8)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    chunk, _ = _split_plan(B, H, K, ctx, row_bytes, n_sm)
+    return [(B, pos) for pos in sorted({0, 1, chunk - 1, chunk, chunk + 1, ctx - 1})]
+
+
+def check_beam_attention(batches=(1, 8), dtype=torch.bfloat16):
+    """K1 in ``dtype`` against its plain version at ``beam_positions``: the
+    attention output within the dtype's tolerance, and the caches: the
+    target column of every slot holds the new K/V, every other element is
+    untouched.  Returns the max abs error."""
     from faster_whisper_tpu_torch.ops.beam_attention import (
         beam_attend_append,
         beam_attend_append_ref,
     )
 
+    shapes = [bp for B in batches for bp in beam_positions(B, False, dtype)]
     worst = 0.0
     for (B, pos), divergent in ((shape, d) for shape in shapes for d in (False, True)):
         x = k1_inputs(B, pos, seed=B * 1000 + pos, divergent=divergent, dtype=dtype)
@@ -210,19 +226,19 @@ def k2_inputs(B, pos, seed=0, divergent=False, **kw):
     return x
 
 
-def check_beam_attention_int8(shapes=((1, 0), (1, 17), (1, 447), (8, 0), (8, 17), (8, 447)),
-                              dtype=torch.bfloat16):
-    """K2 with ``dtype`` activations against its plain version: the
-    attention output within the dtype's tolerance; the codes written at the
-    target column equal to the plain
-    version's (up to one unit where a value lies on a rounding boundary,
-    counted), the scales bit-equal, and nothing outside the target column
-    moved.  Returns (max abs error, count of codes that differ)."""
+def check_beam_attention_int8(batches=(1, 8), dtype=torch.bfloat16):
+    """K2 with ``dtype`` activations against its plain version at
+    ``beam_positions``: the attention output within the dtype's tolerance;
+    the codes written at the target column equal to the plain version's
+    (up to one unit where a value lies on a rounding boundary, counted),
+    the scales bit-equal, and nothing outside the target column moved.
+    Returns (max abs error, count of codes that differ)."""
     from faster_whisper_tpu_torch.ops.beam_attention import (
         beam_attend_append,
         beam_attend_append_ref,
     )
 
+    shapes = [bp for B in batches for bp in beam_positions(B, True, dtype)]
     worst, n_diff = 0.0, 0
     for (B, pos), divergent in ((shape, d) for shape in shapes for d in (False, True)):
         x = k2_inputs(B, pos, seed=B * 1000 + pos + 7, divergent=divergent, dtype=dtype)
@@ -254,6 +270,44 @@ def check_beam_attention_int8(shapes=((1, 0), (1, 17), (1, 447), (8, 0), (8, 17)
                 raise AssertionError("K2 wrote outside the target column")
         worst, n_diff = max(worst, err), n_diff + n
     return worst, n_diff
+
+
+K1_FORMS = {  # form -> (int8 cache, activation dtype)
+    "K1": (False, torch.bfloat16),
+    "K1 f32": (False, torch.float32),
+    "K2": (True, torch.bfloat16),
+    "K2 f32": (True, torch.float32),
+}
+
+
+def check_beam_attention_graph(form, B=1, pos=40):
+    """Two layers of K1/K2 (``form``) captured in one CUDA graph and
+    replayed twice: every replay's outputs agree with the plain version's,
+    so the ticket counters were reset after each launch."""
+    from faster_whisper_tpu_torch.ops.beam_attention import (
+        beam_attend_append,
+        beam_attend_append_ref,
+    )
+
+    quant, dtype = K1_FORMS[form]
+    x = (k2_inputs if quant else k1_inputs)(B, pos, seed=77, divergent=True, dtype=dtype)
+    layers = (x["layer"], x["layer"] - 1)
+    refs = [_k1_call(beam_attend_append_ref, x, layer=i)[0] for i in layers]
+    caches = (_clone(x["self_k"]), _clone(x["self_v"]))  # the appends rewrite one column
+    for i in layers:  # warm-up outside the capture
+        _k1_call(beam_attend_append, x, caches, layer=i)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [_k1_call(beam_attend_append, x, caches, layer=i)[0] for i in layers]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, r in zip(outs, refs):
+            err = (o.float() - r.float()).abs().max().item()
+            if not err <= tolerance(dtype) * r.float().abs().max().item():
+                raise AssertionError(f"{form} in a CUDA graph of two layers disagrees: {err:.3e}")
+    print(f"{form}: two layers in one CUDA graph, replayed twice, agree")
 
 
 # ---------------------------------------------------------------------------
@@ -349,6 +403,9 @@ def k3_inputs(B, S=1500, H=20, D=64, seed=0, dtype=torch.bfloat16):
         torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
         for _ in range(3)
     ]
+
+
+K3_SHAPES = dict(batches=(1, 8), Ss=(1, 63, 128, 1500, 1501))
 
 
 def check_flash_attention(batches=(1, 8), Ss=(1500,), dtype=torch.bfloat16):
@@ -464,6 +521,7 @@ def time_beam_attention(B=1, pos=447, K=5, H=20, D=64, quant=False, dtype=torch.
     """K1, or K2 with ``quant``, with ``dtype`` activations, on a divergent
     ancestry."""
     from faster_whisper_tpu_torch.ops.beam_attention import (
+        _split_plan,
         beam_attend_append,
         beam_attend_append_ref,
     )
@@ -487,8 +545,11 @@ def time_beam_attention(B=1, pos=447, K=5, H=20, D=64, quant=False, dtype=torch.
     )
     flops = 4 * B * H * K * n * D  # QK and PV, f32 FMA
     t["bound_ms"], t["bound_by"] = bound(nbytes, flops, F32_FLOPS)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    chunk, n_chunks = _split_plan(B, H, K, 448, D if quant else act * D, n_sm)
     t["shape"] = (f"B={B} H={H} K={K} ctx=448 pos={pos} D={D} {dtype_name(dtype)}"
-                  f"{' int8 cache' if quant else ''}, divergent beams ({rows} distinct cache rows)")
+                  f"{' int8 cache' if quant else ''}, divergent beams ({rows} distinct cache rows)"
+                  f", {n_chunks} chunks of {chunk}: {n_chunks * B * H} blocks")
     return t
 
 
@@ -526,8 +587,14 @@ def time_flash_attention(B=1, S=1500, H=20, D=64, dtype=torch.bfloat16):
     act = torch.finfo(dtype).bits // 8
     nbytes = 4 * B * S * H * D * act
     flops = 4 * B * H * S * S * D
-    peak = F32_FLOPS if dtype == torch.float32 else BF16_TENSOR_FLOPS
-    t["bound_ms"], t["bound_by"] = bound(nbytes, flops, peak)
+    if dtype == torch.float32:
+        # The float32 kernel takes three TF32 tensor-core products per
+        # product (3xTF32): its least time is 3x the operations over the
+        # TF32 peak.  The same work on the f32 FMA units, beside it.
+        t["bound_ms"], t["bound_by"] = bound(nbytes, 3 * flops, TF32_TENSOR_FLOPS)
+        t["fma_bound_ms"] = bound(nbytes, flops, F32_FLOPS)[0]
+    else:
+        t["bound_ms"], t["bound_by"] = bound(nbytes, flops, BF16_TENSOR_FLOPS)
     t["shape"] = f"({B},{S},{H},{D}) {dtype_name(dtype)}"
     return t
 
@@ -742,10 +809,11 @@ def _fmt(x):
 
 
 def print_times(label, t, card):
+    fma = f", f32 FMA bound {t['fma_bound_ms']:.4f} ms" if "fma_bound_ms" in t else ""
     print(f"{label} {t['shape']}: kernel {t['ms']:.4f} ms warm, {t['cold_ms']:.4f} ms L2 cold, "
           f"{t['call_ms']:.4f} ms per call from the host; plain {t['plain_ms']:.4f} ms; "
           f"library {_fmt(t['library_ms'])} warm, {_fmt(t['library_cold_ms'])} L2 cold; "
-          f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) on {card}")
+          f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}){fma} on {card}")
 
 
 def main():
@@ -769,11 +837,13 @@ def main():
     errs = {
         "K1": check_beam_attention(),
         "K1 f32": check_beam_attention(dtype=f32),
-        "K3": check_flash_attention(),
-        "K3 f32": check_flash_attention(dtype=f32),
+        "K3": check_flash_attention(**K3_SHAPES),
+        "K3 f32": check_flash_attention(**K3_SHAPES, dtype=f32),
     }
     errs["K2"], k2_codes = check_beam_attention_int8()
     errs["K2 f32"], k2_codes_f32 = check_beam_attention_int8(dtype=f32)
+    for form in K1_FORMS:
+        check_beam_attention_graph(form)
     for form, err in check_cross_attention().items():
         errs[f"K4 {form}"] = err
     print(f"K2 codes that differ from the plain version's by one unit: {k2_codes} (bf16), "
@@ -796,8 +866,11 @@ def main():
     for label, t in times.items():
         print_times(label, t, card)
     print_times("K3", time_flash_attention(B=8), card)
+    print_times("K3 f32", time_flash_attention(B=8, dtype=f32), card)
     for quant in (False, True):
         print_times("K4", time_cross_attention(quant, B=8), card)
+    for label, (quant, dtype) in K1_FORMS.items():
+        print_times(label, time_beam_attention(B=8, quant=quant, dtype=dtype), card)
     print_times("K1", time_beam_attention(B=5, pos=223), card)
     phase("times", t0)
 
@@ -812,8 +885,8 @@ def main():
         t = times[label]
         return dict(name=name, route="cuda", source=f"faster_whisper_tpu_torch/csrc/{source}",
                     replaces=replaces, launches=launches, max_abs_err=errs[label],
-                    **{k: t[k] for k in ("ms", "cold_ms", "plain_ms", "bound_ms", "bound_by",
-                                         "library_ms")})
+                    **{k: t[k] for k in ("ms", "cold_ms", "call_ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")})
 
     bf16, int8, fp32, int8_f32 = (runs[k] for k in ("bf16", "int8", "f32", "int8_f32"))
     kernels = [

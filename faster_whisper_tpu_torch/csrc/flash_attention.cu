@@ -11,8 +11,8 @@
 // What bounds it on an H100: operations.  At the encoder's S=1500, D=64 it
 // does 4*S*S*D FLOP per (b, h) against 4*S*D*2 B of input and output, about
 // 375 FLOP/B, above the card's bf16 ridge of 295 FLOP/B, so the tensor
-// cores are the limit (989 TFLOP/s dense bf16); in float32 the CUDA cores
-// (67 TFLOP/s).
+// cores are the limit (989 TFLOP/s dense bf16); in float32 the TF32 tensor
+// cores (495 TFLOP/s dense) at three products per product, see below.
 //
 // bf16 design (Hopper): the (S, S) score matrix never exists in device
 // memory.  A block owns 64 query rows of one (b, h), two blocks per SM (a
@@ -36,11 +36,21 @@
 // output is staged in the Q buffer (swizzled) and written with one TMA
 // store.
 //
-// float32 design: a separate simple kernel, full float32 FMA on the CUDA
-// cores (no TF32: TF32 keeps three digits, and the float32 path is held to
-// the JAX package's float32 at ~1e-5).  One thread per query row keeps its
-// q and o rows in registers and walks the keys in shared-memory tiles with
-// the same online softmax, rescaling once per 16 keys.
+// float32 design: a separate kernel at float32 accuracy on the TF32 tensor
+// cores ("3xTF32", as CUTLASS names it), with mma.sync m16n8k8: each
+// operand x is split into TF32 parts hi + lo, and a product is
+// a_lo b_hi + a_hi b_lo + a_hi b_hi summed in f32, within ~2^-21 of the
+// float32 product (one TF32 product alone keeps three digits, and the
+// float32 path is held to the JAX package's float32 at ~1e-5).  A block owns
+// 64 query rows of one (b, h), four warps of 16 rows, with Q's split
+// fragments in registers; K/V tiles of 64 keys are double-buffered in shared
+// memory with 16-byte cp.async, the next tile landing while the current one
+// is multiplied, rows padded so that the fragment loads are free of bank
+// conflicts.  The online softmax runs in f32 on the accumulators (exp2f in
+// the log2 domain, not the approximate unit); P is split from the score
+// accumulators in registers.  Keys at or past S arrive as zeros and are set
+// to -inf.  wgmma is not used: its TF32 form wants both shared-memory
+// operands K-major, and V is MN-major in P V.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
@@ -385,102 +395,250 @@ __global__ void __launch_bounds__(256, 2) flash_fwd_wgmma_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// float32
+// float32: 3xTF32 on mma.sync
 // ---------------------------------------------------------------------------
 
-constexpr int F_ROWS = 64;  // query rows per block, one per thread
-constexpr int F_TILE = 64;  // keys per shared-memory tile
-constexpr int F_SUB = 16;   // keys per online-softmax update
+constexpr int F_THREADS = 128;      // four warps, 16 query rows each
+constexpr int F_ROWS = 64;          // query rows per block
+constexpr int F_TILE = 64;          // keys per K/V tile
+constexpr int F_KS = HD + 8;        // K row stride in floats: 8-byte fragment loads free of conflicts
+constexpr int F_VS = HD + 4;        // V row stride in floats: 4-byte fragment loads free of conflicts
+constexpr int F_STAGE = F_TILE * (F_KS + F_VS);  // floats per ring slot (K tile, then V tile)
+constexpr int F_SMEM_BYTES = 2 * F_STAGE * 4;    // 71,680: two slots
 
-__global__ void __launch_bounds__(F_ROWS) flash_fwd_f32_kernel(
+// 16-byte asynchronous copy; with `valid` false the destination is filled
+// with zeros and nothing is read.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x rounded to TF32 (10 explicit mantissa bits), to nearest with ties away
+// from zero as cvt.rna.tf32.f32 rounds, in two integer operations on the
+// full-rate pipes (the conversion instruction runs at a quarter of that).
+__device__ __forceinline__ uint32_t round_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo with hi and lo TF32 values: hi rounded to nearest, lo the
+// rounded remainder (x - hi is exact).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = round_tf32(x);
+  lo = round_tf32(x - __uint_as_float(hi));
+}
+
+// d (16 x 8, f32) += a (16 x 8, TF32, row) * b (8 x 8, TF32, col).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The product at float32 accuracy, a_hi b_hi into `big` and a_lo b_hi +
+// a_hi b_lo into `small` (the a_lo b_lo term, below 2^-22 of the product,
+// is dropped).
+__device__ __forceinline__ void mma_3xtf32(float (&big)[4], float (&small)[4],
+                                           const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                           float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(small, al, bh0, bh1);
+  mma_tf32(small, ah, bl0, bl1);
+  mma_tf32(big, ah, bh0, bh1);
+}
+
+// Fragments of m16n8k8 (lane = 4 g + t): A holds (g, t), (g+8, t), (g, t+4),
+// (g+8, t+4); B holds (k=t, n=g), (k=t+4, n=g); C holds (g, 2t), (g, 2t+1),
+// (g+8, 2t), (g+8, 2t+1).  The order of a contraction is free as long as A
+// and B follow the same one, so the kernel maps the fragment's k = t and
+// k = t+4 onto neighbouring elements 2t and 2t+1 of each group of 8: K's
+// two B values are one 8-byte load, and P's A fragment is the score
+// accumulator as it stands (C's (g, 2t), (g, 2t+1) are A's (g, t), (g, t+4)).
+//
+// The tensor cores round their f32 sums toward zero, so a long chain of
+// mma into one accumulator drifts (~3e-5 of the output over 1500 keys).
+// Each chain here is one tile long: S from zero per tile, hi*hi apart from
+// the small terms, and a tile's P V from zero, folded into O with an
+// ordinary (round-to-nearest) FMA.
+__global__ void __launch_bounds__(F_THREADS, 2) flash_fwd_f32_kernel(
     const float* __restrict__ q,  // (B, S, H, 64)
     const float* __restrict__ k, const float* __restrict__ v, float* __restrict__ out, int S,
     int H, float scale_log2) {
-  __shared__ __align__(16) float Ks[F_TILE][HD];
-  __shared__ __align__(16) float Vs[F_TILE][HD];
+  extern __shared__ float4 f_smem4[];
+  float* smem = reinterpret_cast<float*>(f_smem4);
   const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const size_t row_stride = (size_t)H * HD;
-  const size_t base = (size_t)b * S * row_stride + (size_t)h * HD;
-  const int row = blockIdx.x * F_ROWS + tid;
+  const size_t rs = (size_t)H * HD;  // elements between rows
+  const size_t base = (size_t)b * S * rs + (size_t)h * HD;
+  const int r0 = blockIdx.x * F_ROWS + warp * 16 + g;  // this lane's rows: r0 and r0 + 8
 
-  float qr[HD], o[HD];
+  // K and V tile `tile` into ring slot tile % 2, 16 bytes per copy; keys
+  // past S are zeros.
+  auto load_tile = [&](int tile) {
+    float* ks = smem + (tile & 1) * F_STAGE;
+    float* vs = ks + F_TILE * F_KS;
+    const int n0 = tile * F_TILE;
 #pragma unroll
-  for (int d4 = 0; d4 < HD / 4; ++d4) {
-    const float4 x = row < S ? *reinterpret_cast<const float4*>(q + base + row * row_stride + 4 * d4)
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-    qr[4 * d4] = x.x;
-    qr[4 * d4 + 1] = x.y;
-    qr[4 * d4 + 2] = x.z;
-    qr[4 * d4 + 3] = x.w;
+    for (int i = tid; i < F_TILE * HD / 4; i += F_THREADS) {
+      const int r = i >> 4;
+      const int c = (i & 15) * 4;
+      const bool ok = n0 + r < S;
+      const size_t off = base + (size_t)(ok ? n0 + r : 0) * rs + c;
+      cp_async16_zfill(ks + r * F_KS + c, k + off, ok);
+      cp_async16_zfill(vs + r * F_VS + c, v + off, ok);
+    }
+    cp_async_commit();
+  };
+  const int n_tiles = (S + F_TILE - 1) / F_TILE;
+  load_tile(0);
+
+  // Q's A fragments, scaled into the log2 domain and split, for the 8
+  // k-steps over d: (g, t) <-> d = 8s + 2t, (g, t+4) <-> d = 8s + 2t + 1.
+  uint32_t qh[8][4], ql[8][4];
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const float2 zero = make_float2(0.f, 0.f);
+    const float2 x0 = r0 < S ? *reinterpret_cast<const float2*>(q + base + (size_t)r0 * rs + 8 * s + 2 * t) : zero;
+    const float2 x1 = r0 + 8 < S ? *reinterpret_cast<const float2*>(q + base + (size_t)(r0 + 8) * rs + 8 * s + 2 * t) : zero;
+    split_tf32(x0.x * scale_log2, qh[s][0], ql[s][0]);
+    split_tf32(x1.x * scale_log2, qh[s][1], ql[s][1]);
+    split_tf32(x0.y * scale_log2, qh[s][2], ql[s][2]);
+    split_tf32(x1.y * scale_log2, qh[s][3], ql[s][3]);
   }
-#pragma unroll
-  for (int d = 0; d < HD; ++d) o[d] = 0.f;
-  float m = -INFINITY, l = 0.f;  // running max (log2 domain) and sum
 
-  for (int n0 = 0; n0 < S; n0 += F_TILE) {
-    __syncthreads();  // every thread is done with the previous tile
-    for (int i = tid; i < F_TILE * (HD / 4); i += F_ROWS) {
-      const int r = i / (HD / 4);
-      const int c4 = (i % (HD / 4)) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (n0 + r < S) {
-        kv = *reinterpret_cast<const float4*>(k + base + (n0 + r) * row_stride + c4);
-        vv = *reinterpret_cast<const float4*>(v + base + (n0 + r) * row_stride + c4);
-      }
-      *reinterpret_cast<float4*>(&Ks[r][c4]) = kv;
-      *reinterpret_cast<float4*>(&Vs[r][c4]) = vv;
+  // O's accumulators: d tile j holds (g, 8j+2t), (g, 8j+2t+1), (g+8, 8j+2t),
+  // (g+8, 8j+2t+1).  Running max (log2 domain) and this lane's part of the
+  // running sum, for rows g and g+8.
+  float o[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (tile + 1 < n_tiles) {
+      load_tile(tile + 1);  // lands while this tile is multiplied
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    const int nk = min(F_TILE, S - n0);
-    for (int j0 = 0; j0 < nk; j0 += F_SUB) {
-      float s[F_SUB];
+    const float* ks = smem + (tile & 1) * F_STAGE;
+    const float* vs = ks + F_TILE * F_KS;
+
+    // S = Q K^T for keys 8n + (0..7) in sc[n].
+    float sc[8][4];
 #pragma unroll
-      for (int j = 0; j < F_SUB; ++j) {
-        const float4* kr = reinterpret_cast<const float4*>(Ks[j0 + j]);
-        float acc = 0.f;
+    for (int n = 0; n < 8; ++n) {
+      float small[4] = {0.f, 0.f, 0.f, 0.f};
+      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+      const float* kr = ks + (8 * n + g) * F_KS + 2 * t;
 #pragma unroll
-        for (int d4 = 0; d4 < HD / 4; ++d4) {
-          const float4 kk = kr[d4];
-          acc = fmaf(qr[4 * d4], kk.x, acc);
-          acc = fmaf(qr[4 * d4 + 1], kk.y, acc);
-          acc = fmaf(qr[4 * d4 + 2], kk.z, acc);
-          acc = fmaf(qr[4 * d4 + 3], kk.w, acc);
-        }
-        s[j] = j0 + j < nk ? acc * scale_log2 : -INFINITY;
+      for (int s = 0; s < 8; ++s) {
+        const float2 kk = *reinterpret_cast<const float2*>(kr + 8 * s);
+        mma_3xtf32(sc[n], small, qh[s], ql[s], kk.x, kk.y);
       }
-      float mx = m;
 #pragma unroll
-      for (int j = 0; j < F_SUB; ++j) mx = fmaxf(mx, s[j]);
-      const float corr = exp2f(m - mx);  // 0 on the first update
-      m = mx;
-      l *= corr;
+      for (int i = 0; i < 4; ++i) sc[n][i] += small[i];
+    }
+    const int n_valid = S - tile * F_TILE;  // keys at or past S score -inf
+    if (n_valid < F_TILE) {
 #pragma unroll
-      for (int d = 0; d < HD; ++d) o[d] *= corr;
-#pragma unroll
-      for (int j = 0; j < F_SUB; ++j) {
-        const float p = exp2f(s[j] - mx);  // 0 past S
-        l += p;
-        const float4* vr = reinterpret_cast<const float4*>(Vs[j0 + j]);
-#pragma unroll
-        for (int d4 = 0; d4 < HD / 4; ++d4) {
-          const float4 vv = vr[d4];
-          o[4 * d4] = fmaf(p, vv.x, o[4 * d4]);
-          o[4 * d4 + 1] = fmaf(p, vv.y, o[4 * d4 + 1]);
-          o[4 * d4 + 2] = fmaf(p, vv.z, o[4 * d4 + 2]);
-          o[4 * d4 + 3] = fmaf(p, vv.w, o[4 * d4 + 3]);
-        }
+      for (int n = 0; n < 8; ++n) {
+        if (8 * n + 2 * t >= n_valid) sc[n][0] = sc[n][2] = -INFINITY;
+        if (8 * n + 2 * t + 1 >= n_valid) sc[n][1] = sc[n][3] = -INFINITY;
       }
     }
-  }
-  if (row < S) {
-    const float inv = 1.f / l;
+
+    // Online softmax in f32 (exp2f, not the approximate unit).  The first
+    // tile always holds a key, so the maxima are finite from then on.
+    float mx_lo = m_lo, mx_hi = m_hi;
 #pragma unroll
-    for (int d4 = 0; d4 < HD / 4; ++d4)
-      *reinterpret_cast<float4*>(out + base + row * row_stride + 4 * d4) =
-          make_float4(o[4 * d4] * inv, o[4 * d4 + 1] * inv, o[4 * d4 + 2] * inv,
-                      o[4 * d4 + 3] * inv);
+    for (int n = 0; n < 8; ++n) {
+      mx_lo = fmaxf(mx_lo, fmaxf(sc[n][0], sc[n][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(sc[n][2], sc[n][3]));
+    }
+#pragma unroll
+    for (int o2 = 1; o2 < 4; o2 <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, o2));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, o2));
+    }
+    const float corr_lo = exp2f(m_lo - mx_lo);  // 0 on the first tile
+    const float corr_hi = exp2f(m_hi - mx_hi);
+    m_lo = mx_lo;
+    m_hi = mx_hi;
+    l_lo *= corr_lo;
+    l_hi *= corr_hi;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      sc[n][0] = exp2f(sc[n][0] - mx_lo);
+      sc[n][1] = exp2f(sc[n][1] - mx_lo);
+      sc[n][2] = exp2f(sc[n][2] - mx_hi);
+      sc[n][3] = exp2f(sc[n][3] - mx_hi);
+      l_lo += sc[n][0] + sc[n][1];
+      l_hi += sc[n][2] + sc[n][3];
+    }
+
+    // This tile's P V, k-step n over keys 8n..8n+7: A = P's accumulators
+    // ((g, t) <-> key 8n + 2t, (g, t+4) <-> key 8n + 2t + 1), B = V rows
+    // 8n + 2t and 8n + 2t + 1 at column 8j + g.  Then O = O * corr + P V.
+    float pv[8][4], pv_small[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[j][i] = pv_small[j][i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      uint32_t ph[4], pl[4];
+      split_tf32(sc[n][0], ph[0], pl[0]);
+      split_tf32(sc[n][2], ph[1], pl[1]);
+      split_tf32(sc[n][1], ph[2], pl[2]);
+      split_tf32(sc[n][3], ph[3], pl[3]);
+      const float* vr = vs + (8 * n + 2 * t) * F_VS + g;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mma_3xtf32(pv[j], pv_small[j], ph, pl, vr[8 * j], vr[F_VS + 8 * j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o[j][0] = fmaf(o[j][0], corr_lo, pv[j][0] + pv_small[j][0]);
+      o[j][1] = fmaf(o[j][1], corr_lo, pv[j][1] + pv_small[j][1]);
+      o[j][2] = fmaf(o[j][2], corr_hi, pv[j][2] + pv_small[j][2]);
+      o[j][3] = fmaf(o[j][3], corr_hi, pv[j][3] + pv_small[j][3]);
+    }
+    __syncthreads();  // every warp is done with this slot before it is refilled
+  }
+
+#pragma unroll
+  for (int o2 = 1; o2 < 4; o2 <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, o2);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, o2);
+  }
+  const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (r0 < S)
+      *reinterpret_cast<float2*>(out + base + (size_t)r0 * rs + 8 * j + 2 * t) =
+          make_float2(o[j][0] * inv_lo, o[j][1] * inv_lo);
+    if (r0 + 8 < S)
+      *reinterpret_cast<float2*>(out + base + (size_t)(r0 + 8) * rs + 8 * j + 2 * t) =
+          make_float2(o[j][2] * inv_hi, o[j][3] * inv_hi);
   }
 }
 
@@ -547,8 +705,11 @@ extern "C" int fwt_mha_flash_bf16(const void* q, const void* k, const void* v, v
 
 extern "C" int fwt_mha_flash_f32(const void* q, const void* k, const void* v, void* out, int B,
                                  int S, int H, float scale, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid((S + F_ROWS - 1) / F_ROWS, H, B);
-  flash_fwd_f32_kernel<<<grid, F_ROWS, 0, (cudaStream_t)stream>>>(
+  flash_fwd_f32_kernel<<<grid, F_THREADS, F_SMEM_BYTES, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, S, H, scale * kLog2e);
   return (int)cudaGetLastError();
 }

@@ -33,10 +33,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # cudaError_t as an int, 0 on success.
 SIGNATURES = {
     "beam_attention.cu": {
-        "fwt_beam_attend_append_bf16": [_P] * 8 + [_I] * 6 + [_F, _P],
-        "fwt_beam_attend_append_f32": [_P] * 8 + [_I] * 6 + [_F, _P],
-        "fwt_beam_attend_append_int8": [_P] * 10 + [_I] * 6 + [_F, _P],
-        "fwt_beam_attend_append_int8_f32": [_P] * 10 + [_I] * 6 + [_F, _P],
+        "fwt_beam_attend_append_bf16": [_P] * 11 + [_I] * 7 + [_F, _P],
+        "fwt_beam_attend_append_f32": [_P] * 11 + [_I] * 7 + [_F, _P],
+        "fwt_beam_attend_append_int8": [_P] * 13 + [_I] * 7 + [_F, _P],
+        "fwt_beam_attend_append_int8_f32": [_P] * 13 + [_I] * 7 + [_F, _P],
     },
     "cross_attention.cu": {
         "fwt_cross_attend_bf16": [_P] * 7 + [_I] * 7 + [_F, _P],

@@ -18,21 +18,54 @@ written, and the scales fold into the scores and the PV weights.
 ``beam_attend_append`` runs the hand-written CUDA kernels K1 (raw cache)
 and K2 (int8 cache) of ``csrc/beam_attention.cu``, each with bfloat16 or
 float32 activations, on CUDA tensors and their plain version
-``beam_attend_append_ref`` on CPU tensors.
+``beam_attend_append_ref`` on CPU tensors.  The kernel splits the columns
+into chunks (``_split_plan``) and merges their softmax partials in the
+same launch.
 
 Unlike the JAX functions, both update the cache tensors IN PLACE (the TPU
 kernel aliased them too, but JAX returns new arrays); they return the same
 tensors so that call sites read like the JAX ones.
 """
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from faster_whisper_tpu_torch.ops import _build
+from faster_whisper_tpu_torch.ops.cross_attention import _buffer, _sm_count
 from faster_whisper_tpu_torch.ops.quant import QuantKV, quantize_kv
 
 NEG_INF = -1e30
+
+_HEAD_DIM = 64  # csrc/beam_attention.cu: K1_D
+_MAX_BEAMS = 32  # csrc/beam_attention.cu: K1_MAXK, one bit per beam
+_MAX_CHUNK = 64  # csrc/beam_attention.cu: K1_MAX_CHUNK
+_CHUNK_ALIGN = 8
+_BLOCKS_PER_SM = 2
+_ROW_BUDGET = 64 * 1024  # bytes of K and V row slots a block holds in shared memory
+_ROW_PAD = 16  # csrc/beam_attention.cu: row_stride, a row and 16 bytes
+
+
+@functools.lru_cache(maxsize=None)
+def _split_plan(b: int, h: int, k: int, ctx: int, row_bytes: int, n_sm: int = 132) -> Tuple[int, int]:
+    """(chunk, n_chunks): K1/K2 split the ctx columns into n_chunks chunks
+    of ``chunk``, aiming the grid of n_chunks * b * h blocks at two blocks
+    per SM.  A chunk is a multiple of 8 columns (rounded up), at most 64,
+    and small enough that its k * chunk K and V row slots (``row_bytes``
+    and 16 bytes of padding each) fit in 64 KB of shared memory (never
+    below 8).  The plan does not depend on the write position, so every
+    step of a decode has the same grid.  At B=1, H=20, K=5, ctx=448: 14
+    chunks of 32 (bf16 or int8 rows), 280 blocks."""
+    if min(b, h, k, ctx, row_bytes) < 1:
+        raise ValueError(f"beam_attend_append: no work in B={b}, H={h}, K={k}, ctx={ctx}")
+    want = -(-_BLOCKS_PER_SM * n_sm // (b * h))  # chunks per (b, h)
+    chunk = -(-ctx // want)
+    chunk = -(-chunk // _CHUNK_ALIGN) * _CHUNK_ALIGN
+    slot = row_bytes + _ROW_PAD
+    fit = max(_CHUNK_ALIGN, _ROW_BUDGET // (2 * k * slot) // _CHUNK_ALIGN * _CHUNK_ALIGN)
+    chunk = min(chunk, _MAX_CHUNK, fit)
+    return chunk, -(-ctx // chunk)
 
 
 def beam_attend_append(
@@ -57,8 +90,10 @@ def beam_attend_append(
     write every beam at ``pos_row`` and ignore ``pos_bk``, which differs
     from the plain version only in the slots of finished sampling beams,
     whose outputs are never read (as with the TPU kernels).  Requires
-    ``0 <= pos_row < ctx``.  On a CPU tensor: ``beam_attend_append_ref``,
-    which honours ``pos_bk``."""
+    ``0 <= pos_row < ctx``, a head dim of 64 and at most 32 beams.  A call
+    allocates only its output: scratch and ticket counters are kept per
+    device.  On a CPU tensor: ``beam_attend_append_ref``, which honours
+    ``pos_bk``."""
     if not q.is_cuda:
         if q.device.type != "cpu":
             raise ValueError(f"beam_attend_append: no path for device {q.device}")
@@ -106,22 +141,30 @@ def beam_attend_append(
             raise ValueError(f"beam_attend_append: {name} has shape {tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"beam_attend_append: {name} is not contiguous")
-    # one 16-byte load covers 16 int8, 8 bf16 or 4 float32 values of a row
-    align = 16 if quant else 16 // q.element_size()
-    if d % align or d > 256:
-        raise ValueError(
-            f"beam_attend_append: head dim {d} must be a multiple of {align}, at most 256"
-        )
+    if d != _HEAD_DIM:
+        raise ValueError(f"beam_attend_append: head dim {d}, the kernel is built for 64 (every Whisper size)")
+    if not 1 <= k <= _MAX_BEAMS:
+        raise ValueError(f"beam_attend_append: {k} beams, the kernel takes 1..{_MAX_BEAMS}")
     if not 0 <= layer < n_layer:
         raise ValueError(f"beam_attend_append: layer {layer} outside [0, {n_layer})")
+    if any(t.data_ptr() % 16 for t in (q, k_new, v_new, codes_k, self_v.q if quant else self_v)):
+        raise ValueError("beam_attend_append: q, k_new, v_new and the caches must be 16-byte aligned")
 
+    row_bytes = d * (1 if quant else q.element_size())
+    chunk, n_chunks = _split_plan(b, h, k, ctx, row_bytes, _sm_count(q.device))
+    # Scratch for the chunks' partials: (B*H, n_chunks, K, D) sums, then
+    # (B*H, n_chunks, K, 2) max and denominator, addressed by pointer.
+    n_part = b * h * n_chunks * k
+    part_o = _buffer(q.device, "beam_attend scratch", n_part * (d + 2), torch.float32).data_ptr()
+    part_ml = part_o + 4 * n_part * d
+    tickets = _buffer(q.device, "beam_attend tickets", b * h, torch.int32)
     lib = _build.load("beam_attention.cu")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     f32 = q.dtype == torch.float32
     tail = (
-        anc.data_ptr(), pos_row.data_ptr(), out.data_ptr(),
-        b, h, k, ctx, d, int(layer), float(d) ** -0.5, stream,
+        anc.data_ptr(), pos_row.data_ptr(), out.data_ptr(), part_o, part_ml, tickets.data_ptr(),
+        b, h, k, ctx, d, int(layer), chunk, float(d) ** -0.5, stream,
     )
     if quant:
         fn = lib.fwt_beam_attend_append_int8_f32 if f32 else lib.fwt_beam_attend_append_int8

@@ -29,12 +29,12 @@ _MAX_CHUNK = 128  # csrc/cross_attention.cu: K4_MAX_CHUNK, one column per thread
 _CHUNK_ALIGN = 16
 _BLOCKS_PER_SM = 3
 
-# Per device: the kernel's (B*H,) ticket counters, zero between calls (the
-# last block of each (b, h) sets its counter back to 0; one stream at a
-# time may run the kernel on a device), and the SM count.  A counter array
-# outgrown by a larger B*H stays allocated, since a captured CUDA graph may
-# still address it.
-_tickets: Dict[torch.device, List[torch.Tensor]] = {}
+# Per device and use: buffers that a kernel keeps between calls, such as
+# its (B*H,) ticket counters, zero between calls (the last block of each
+# (b, h) sets its counter back to 0; one stream at a time may run a kernel
+# on a device).  A buffer outgrown by a larger call stays allocated, since a
+# captured CUDA graph may still address it.  And per device, the SM count.
+_buffers: Dict[Tuple[torch.device, str], List[torch.Tensor]] = {}
 _n_sm: Dict[torch.device, int] = {}
 
 
@@ -53,10 +53,12 @@ def _split_plan(b: int, h: int, t: int, n_sm: int = 132) -> Tuple[int, int]:
     return chunk, -(-t // chunk)
 
 
-def _ticket_counters(device: torch.device, n: int) -> torch.Tensor:
-    bufs = _tickets.setdefault(device, [])
+def _buffer(device: torch.device, use: str, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """The zero-initialised buffer of at least ``n`` elements kept for
+    ``use`` on ``device``."""
+    bufs = _buffers.setdefault((device, use), [])
     if not bufs or bufs[-1].numel() < n:
-        bufs.append(torch.zeros(max(n, 256), dtype=torch.int32, device=device))
+        bufs.append(torch.zeros(max(n, 256), dtype=dtype, device=device))
     return bufs[-1]
 
 
@@ -129,7 +131,7 @@ def cross_attend(layer: int, q: torch.Tensor, cross_k, cross_v) -> torch.Tensor:
     scratch = torch.empty(n_part * (d + 2), dtype=torch.float32, device=q.device)
     part_o = scratch.data_ptr()
     part_ml = part_o + 4 * n_part * d
-    tickets = _ticket_counters(q.device, b * h)
+    tickets = _buffer(q.device, "cross_attend tickets", b * h, torch.int32)
     lib = _build.load("cross_attention.cu")
     out = torch.empty_like(q)
     f32 = q.dtype == torch.float32

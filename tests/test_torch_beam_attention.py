@@ -25,10 +25,11 @@ from faster_whisper_tpu.ops.beam_attention import (
 from faster_whisper_tpu.ops.quant import QuantKV as JaxQuantKV
 from faster_whisper_tpu.ops.quant import quantize_kv as jax_quantize_kv
 from faster_whisper_tpu_torch.ops.beam_attention import (
+    _split_plan,
     beam_attend_append,
     beam_attend_append_ref,
 )
-from faster_whisper_tpu_torch.ops.quant import QuantKV
+from faster_whisper_tpu_torch.ops.quant import QuantKV, quantize_kv
 
 F32_TOL = 1e-5
 BF16_REL = 2e-2
@@ -260,3 +261,85 @@ def test_int8_wrapper_takes_the_plain_version_for_cpu_tensors():
     for x, y in zip(r1, r2):
         assert torch.equal(x.q, y.q) and torch.equal(x.s, y.s)
     assert beam_attend_append.launches_int8 == launches  # no kernel on the CPU
+
+
+@pytest.mark.parametrize(
+    "b,h,k,row_bytes",
+    [(1, 20, 5, 128), (1, 20, 5, 64), (1, 20, 5, 256), (8, 20, 5, 128), (5, 20, 1, 128),
+     (1, 20, 32, 256), (2, 4, 3, 64)],
+)
+def test_split_plan_tiles_the_columns_and_fits_shared_memory(b, h, k, row_bytes):
+    """K1/K2's split over the columns: for every ctx from 1 to 448 the
+    chunks tile [0, ctx); a chunk is a multiple of 8 columns, at most 64,
+    and its K and V row slots (a row and 16 bytes of padding) fit the
+    kernel's 64 KB (8 columns at the least).  The plan takes no write
+    position, so a decode's grid never changes."""
+    for ctx in range(1, 449):
+        chunk, n = _split_plan(b, h, k, ctx, row_bytes)
+        assert 8 <= chunk <= 64 and chunk % 8 == 0, (ctx, chunk)
+        assert (n - 1) * chunk < ctx <= n * chunk, (ctx, chunk, n)
+        assert chunk == 8 or 2 * k * chunk * (row_bytes + 16) <= 64 * 1024, (ctx, chunk)
+    # At the main path's shape (B=1, H=20, K=5, bf16 or int8 rows) the grid
+    # holds at least two blocks per SM of an H100: 14 chunks of 32.
+    if (b, h, k) == (1, 20, 5) and row_bytes <= 128:
+        assert _split_plan(b, h, k, 448, row_bytes, n_sm=132) == (32, 14)
+
+
+def _split_and_merge(layer, pos, q, sk, sv, anc, chunk):
+    """K1/K2's arithmetic in plain PyTorch over caches that already hold
+    the new column: per chunk that holds a visible column, the max m, the
+    sum l and the PV sums o of its columns (each query's row gathered by
+    its ancestry; on the int8 cache the scores times the K scales and the V
+    scales folded into the weights, which stay f32), then the merge
+    sum_i e_i o_i / sum_i e_i l_i with e_i = exp(m_i - max_j m_j)."""
+    quant = isinstance(sk, QuantKV)
+    b, h, k, d = q.shape
+    ck, cv = (sk.q[layer], sv.q[layer]) if quant else (sk[layer], sv[layer])
+    n = pos + 1
+    idx = anc[:, None, :, :n, None].long().expand(b, h, k, n, 1)  # (B, H, Kq, n, 1)
+
+    def gather(x):  # (B, H, K, ctx, ...) -> (B, H, Kq, n, ...): the slot each query sees
+        x = x[:, :, :, :n].float()
+        if x.dim() == 4:
+            return torch.gather(x, 2, idx[..., 0])
+        return torch.gather(x, 2, idx.expand(b, h, k, n, d))
+
+    qs = q.float() * d ** -0.5
+    s = torch.einsum("bhkd,bhkcd->bhkc", qs, gather(ck))
+    vg = gather(cv)
+    if quant:
+        s = s * gather(sk.s[layer])
+        vscale = gather(sv.s[layer])
+    ms, ls, os_ = [], [], []
+    for c0 in range(0, n, chunk):
+        cols = slice(c0, min(n, c0 + chunk))
+        m = s[..., cols].amax(-1, keepdim=True)
+        e = torch.exp(s[..., cols] - m)
+        w = e * vscale[..., cols] if quant else e
+        ms.append(m)
+        ls.append(e.sum(-1, keepdim=True))
+        os_.append(torch.einsum("bhkc,bhkcd->bhkd", w, vg[:, :, :, cols]))
+    m_all = torch.stack(ms).amax(0)
+    scale = [torch.exp(m - m_all) for m in ms]
+    return sum(e * o for e, o in zip(scale, os_)) / sum(e * l for e, l in zip(scale, ls))
+
+
+@pytest.mark.parametrize("pos", [0, 7, 8, 9, 15, 40])
+@pytest.mark.parametrize("quant", [False, True])
+def test_split_and_merge_arithmetic_matches_plain_version(quant, pos):
+    """K1/K2's chunked softmax and merge, at the write position on and
+    beside the chunk boundaries, equal ``beam_attend_append_ref`` at
+    float32 (sums in another order: 1e-5)."""
+    arrs = _inputs(B=2, H=3, K=4, CTX=41, D=16, pos=pos, seed=40 + pos)
+    t = _torch(arrs, torch.float32)
+    sk, sv = t["self_k"], t["self_v"]
+    if quant:
+        sk, sv = (QuantKV(c.q, c.s.to(torch.bfloat16)) for c in (quantize_kv(sk), quantize_kv(sv)))
+    layer = 1
+    ref, sk, sv = beam_attend_append_ref(
+        layer, t["pos_row"], t["q"], t["k_new"], t["v_new"], sk, sv, t["anc"],
+    )
+    chunk, n = _split_plan(2, 3, 4, 41, 16 if quant else 64)
+    assert (chunk, n) == (8, 6)
+    ours = _split_and_merge(layer, pos, t["q"], sk, sv, t["anc"], chunk)
+    np.testing.assert_allclose(ours.numpy(), ref.numpy(), atol=F32_TOL, rtol=F32_TOL)

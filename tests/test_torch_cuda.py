@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card: build them from ``csrc/`` with
 nvcc, then hold every form of K1, K2, K3 and K4 (bfloat16 and float32
 activations, raw and int8 caches) against their plain versions at the
-main path's shapes and at ragged ones (``chip_smoke.py`` phases 2 and 3),
-and a small model at every compute type against the CPU.  Skips without
+main path's shapes and at ragged ones (``chip_smoke.py`` phases 2 and 3:
+K1/K2 with the write position on and beside their column chunks'
+boundaries, and in a CUDA graph), and a small model at every compute type
+against the CPU.  Skips without
 a card; on the card run
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -52,15 +54,18 @@ def test_int8_beam_attention_kernel_with_float32_activations_matches_plain_versi
     assert err >= 0.0
 
 
-K3_SHAPES = dict(batches=(1, 8), Ss=(1, 63, 128, 1500, 1501))
+def test_beam_attention_kernels_in_a_cuda_graph_reset_their_tickets(card):
+    """Every form of K1/K2, two layers in one CUDA graph, replayed twice."""
+    for form in chip_smoke.K1_FORMS:
+        chip_smoke.check_beam_attention_graph(form)
 
 
 def test_flash_attention_kernel_matches_plain_version(card):
-    assert chip_smoke.check_flash_attention(**K3_SHAPES) >= 0.0
+    assert chip_smoke.check_flash_attention(**chip_smoke.K3_SHAPES) >= 0.0
 
 
 def test_float32_flash_attention_kernel_matches_plain_version(card):
-    assert chip_smoke.check_flash_attention(**K3_SHAPES, dtype=torch.float32) >= 0.0
+    assert chip_smoke.check_flash_attention(**chip_smoke.K3_SHAPES, dtype=torch.float32) >= 0.0
 
 
 def test_cross_attention_kernel_matches_plain_version(card):
@@ -117,6 +122,8 @@ def test_wrappers_count_launches_and_reject_what_the_kernels_do_not_take(card):
             0, x["pos_row"].long(), x["q"], x["k_new"], x["v_new"],
             x["self_k"], x["self_v"], x["anc"],
         )
+    with pytest.raises(ValueError):  # the kernel is built for a head dim of 64
+        chip_smoke._k1_call(beam_attend_append, chip_smoke.k1_inputs(1, 3, D=32))
 
     x = chip_smoke.k2_inputs(1, 3)
     n, n1 = beam_attend_append.launches_int8, beam_attend_append.launches

@@ -26,6 +26,21 @@ from faster_whisper_tpu_torch.transcribe import WhisperModel
 
 LOGPROB_TOL = 1e-4
 
+OPTION_SETS = {
+    "initial-prompt": dict(initial_prompt="hello world"),
+    "prefix": dict(prefix="abc"),
+    "hotwords": dict(hotwords="xyz"),
+    "no-conditioning": dict(condition_on_previous_text=False),
+    "patience": dict(patience=2.0),
+    "length-penalty": dict(length_penalty=0.5),
+    "clip-timestamps": dict(clip_timestamps="5,20,25"),
+    "repetition-penalty": dict(repetition_penalty=1.5),
+    "no-repeat-ngram": dict(no_repeat_ngram_size=2),
+    "translate": dict(task="translate"),
+    "multilingual": dict(multilingual=True, language=None),
+    "detection-segments": dict(language_detection_segments=3, language=None),
+}
+
 
 def synth_audio(seconds: float, seed: int) -> np.ndarray:
     """A tone that switches on and off over noise, 16 kHz float32."""
@@ -68,8 +83,11 @@ def models(weights, monkeypatch):
             suppress_tokens=[-1] + list(range(257, 1865)),
         ),
         dict(beam_size=1, language="en"),
+        # the options of the seek loop, the prompt and the decode policy,
+        # each beside beam 5 in English
+        *({"beam_size": 5, "language": "en", **opts} for opts in OPTION_SETS.values()),
     ],
-    ids=["beam5-detect", "beam5-no-timestamps", "greedy"],
+    ids=["beam5-detect", "beam5-no-timestamps", "greedy", *OPTION_SETS],
 )
 def test_transcribe_segments_match_jax(models, kwargs):
     jm, pm = models
