@@ -25,16 +25,29 @@ Phases, each printing its own line with its seconds:
    each call under its own events), beside the least time the card could
    take (its bound), and each kernel's time per call when the host issues
    the calls one by one, as the decode loop does;
-5. main path: ``WhisperModel.transcribe`` at large-v3-turbo width (random
+5. VAD: ``docker/jfk.flac`` decoded by the port's ``decode_audio`` and
+   tiled to 5 minutes; the Silero VAD's probabilities and speech
+   timestamps on the card against the same weights on the CPU, and its
+   seconds on each;
+6. chunked mel: the device log-mel of the VAD's speech chunks on the card
+   against the host ``FeatureExtractor`` on the same chunks;
+7. main path: ``WhisperModel.transcribe`` at large-v3-turbo width (random
    weights from a seed, the synthetic 51866-token vocabulary), at bf16 on
    three requests (a-c), at ``compute_type="int8"`` on two (d, e), at
-   ``"float32"`` on one (f) and at ``"int8_float32"`` on one (g), each run
-   with the launch counts set to 0 before and read after: per decode step
-   four launches of K1 and K4 in the run's activation type over a raw
-   cache, or of K2 and K4's int8 form over an int8 cache, per encode 32 of
-   K3 in the run's activation type, and no launch of any other form.  Then
-   it holds a small model on the card, at bf16, int8, float32 and
-   int8_float32, against the same model on the CPU.
+   ``"float32"`` on one (f) and at ``"int8_float32"`` on one (g); and
+   ``BatchedInferencePipeline.transcribe`` (VAD on, beam 5, batch 8, 128
+   new tokens per chunk) over the tiled audio, request h at bf16 and i at
+   ``"int8"``.  Each run has its launch counts set to 0 before and read
+   after: per decode step (over all rows and beams) four launches of K1
+   and K4 in the run's activation type over a raw cache, or of K2 and
+   K4's int8 form over an int8 cache, per encode (of a window, or of a
+   batch of chunks) 32 of K3 in the run's activation type, and no launch
+   of any other form;
+8. small model: a small model on the card, at bf16, int8, float32 and
+   int8_float32, against the same model on the CPU; then at float32
+   through the pipeline, on ``clip_timestamps`` and with the defaults on
+   ``docker/jfk.flac`` given as a path, whose tokens on the card must
+   equal those on the CPU.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as the last line
@@ -63,6 +76,14 @@ F32_REL_TOL = 2e-5
 # A small float32 model on the card against the CPU: float32 matmuls and
 # convolutions on both (TF32 off), summed in other orders through every layer.
 F32_MODEL_TOL = 1e-5
+# Silero VAD probabilities, card against CPU: float32 on both (TF32 off),
+# an LSTM carried over ~9,400 windows with its sums in other orders.
+VAD_PROB_TOL = 1e-4
+# Chunked log-mel on the card against the host FeatureExtractor: the JAX
+# package's tolerance for the same comparison (tests/test_chunked_mel.py),
+# float32 DFT sums over 400 samples in another order, through log10.
+MEL_ATOL, MEL_RTOL = 3e-4, 1e-3
+JFK_FLAC = "docker/jfk.flac"
 FLUSH_BYTES = 256 * 2**20  # written before each L2-cold call: 5x the 50 MB L2
 
 K1_REPLACES = "faster_whisper_tpu/ops/beam_attention.py:248"
@@ -679,10 +700,11 @@ def check_counts(counts, per_step, per_encode, cfg):
             raise AssertionError(f"{name} launches {n} != {what}")
 
 
-def run_main_path():
+def run_main_path(speech):
     """Requests a-c at bf16, d-e at int8, f at float32 and g at
-    int8_float32, on the same random weights; returns the counts of the
-    four runs."""
+    int8_float32, on the same random weights, and the batched requests h
+    (bf16) and i (int8) over ``speech``; returns the counts of the six
+    runs."""
     from faster_whisper_tpu_torch.models.config import CONFIGS
     from faster_whisper_tpu_torch.models.load import random_params
     from faster_whisper_tpu_torch.testing import build_synthetic_tokenizer
@@ -707,19 +729,21 @@ def run_main_path():
     ], cfg.n_vocab)
     print(f"main path counts, bf16 (a-c): {bf16}")
     check_counts(bf16, per_step=("k1", "k4_bf16"), per_encode="k3", cfg=cfg)
-
     runs = {"bf16": bf16}
-    for key, compute_type, requests, per_step, per_encode in (
+    runs["h"] = run_batched(model, "h: bf16", speech, cfg)
+    check_counts(runs["h"], per_step=("k1", "k4_bf16"), per_encode="k3", cfg=cfg)
+
+    for key, compute_type, requests, per_step, per_encode, batched in (
         ("int8", "int8", [
             ("d: int8, 45 s, language detection, beam 5, temperature ladder, timestamps",
              long_clip, ladder),
             ("e: int8, 20 s, beam 1, temperature 0", short_clip, greedy),
-        ], ("k2", "k4_int8"), "k3"),
+        ], ("k2", "k4_int8"), "k3", "i"),
         ("f32", "float32", [("f: float32, 20 s, beam 1, temperature 0", short_clip, greedy)],
-         ("k1_f32", "k4_f32"), "k3_f32"),
+         ("k1_f32", "k4_f32"), "k3_f32", None),
         ("int8_f32", "int8_float32",
          [("g: int8_float32, 20 s, beam 1, temperature 0", short_clip, greedy)],
-         ("k2_f32", "k4_int8_f32"), "k3_f32"),
+         ("k2_f32", "k4_int8_f32"), "k3_f32", None),
     ):
         del model
         t0 = time.perf_counter()
@@ -731,7 +755,63 @@ def run_main_path():
         print(f"main path counts, {compute_type} ({', '.join(r[0][0] for r in requests)}): {counts}")
         check_counts(counts, per_step=per_step, per_encode=per_encode, cfg=cfg)
         runs[key] = counts
+        if batched:
+            runs[batched] = run_batched(model, f"{batched}: {compute_type}", speech, cfg)
+            check_counts(runs[batched], per_step=per_step, per_encode=per_encode, cfg=cfg)
     return runs
+
+
+def run_batched(model, name, audio, cfg):
+    """One ``BatchedInferencePipeline.transcribe`` with the VAD on, beam 5,
+    batch 8, checked; returns the launch counts of the run, set to 0 just
+    before it.  The chunks of each batch, its seconds (encode and decode)
+    and the rows it was encoded with (its pow2 bucket) are read off the
+    pipeline's dispatch and the model's encode."""
+    from faster_whisper_tpu_torch.transcribe import BatchedInferencePipeline
+
+    pipeline = BatchedInferencePipeline(model)
+    chunks, rows, batch_seconds = [], [], []
+    dispatch, encode = pipeline._dispatch_segment_batch, model.encode
+
+    def counted_dispatch(features, *args):
+        chunks.append(int(features.shape[0]))
+        out, sec = _synced_seconds(lambda: dispatch(features, *args))
+        batch_seconds.append(sec)
+        return out
+
+    def counted_encode(features):
+        rows.append(int(features.shape[0]))
+        return encode(features)
+
+    pipeline._dispatch_segment_batch, model.encode = counted_dispatch, counted_encode
+    try:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        segments, info = pipeline.transcribe(
+            audio, language="en", beam_size=5, batch_size=8, max_new_tokens=128
+        )
+        segments = list(segments)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        del model.encode
+    duration = len(audio) / 16000
+    check_segments(segments, info, duration, cfg.n_vocab)
+    if sum(chunks) < 1 or len(rows) != len(chunks) or counts["encodes"] != len(rows):
+        raise AssertionError(f"batched run {name}: chunks {chunks}, encodes {rows}, {counts}")
+    n_tokens = sum(len(s.tokens) for s in segments)
+    print(f"request {name}, BatchedInferencePipeline, VAD on, beam 5, batch 8, "
+          f"{duration:.1f} s of audio ({info.duration_after_vad:.1f} s of speech): "
+          f"{sum(chunks)} chunks in {len(chunks)} batches of {chunks} chunks, encoded at "
+          f"{rows} rows (pow2 buckets), {counts['steps']} decode steps, {len(segments)} segments, "
+          f"{n_tokens} tokens, {seconds:.3f} s ({', '.join(f'{b:.3f}' for b in batch_seconds)} s "
+          f"encoding and decoding the batches, {seconds - sum(batch_seconds):.3f} s the rest: "
+          f"upload, VAD, log-mel, segments), {duration / seconds:.2f} audio s per wall s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on {card_line()}; "
+          f"counts {counts}")
+    return counts
 
 
 def check_segments(segments, info, duration, n_vocab):
@@ -802,6 +882,146 @@ def check_small_model_against_cpu():
             raise AssertionError(
                 f"language probabilities on the card ({card_type}) disagree with the CPU reference"
             )
+
+
+def jfk_path():
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), JFK_FLAC)
+
+
+def tiled_speech(seconds=300.0):
+    """``docker/jfk.flac`` (11 s of speech, 44.1 kHz stereo 24-bit) through
+    the port's ``decode_audio`` (FLAC, mixed to mono, resampled to 16 kHz),
+    and the same tiled to ``seconds``."""
+    from faster_whisper_tpu_torch.audio import decode_audio
+
+    t0 = time.perf_counter()
+    base = decode_audio(jfk_path())
+    n = int(seconds * 16000)
+    audio = np.tile(base, -(-n // len(base)))[:n]
+    print(f"{JFK_FLAC}: {len(base) / 16000:.3f} s decoded on the host in "
+          f"{time.perf_counter() - t0:.3f} s, tiled to {len(audio) / 16000:.1f} s")
+    return base, audio
+
+
+def _synced_seconds(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_vad(audio, card):
+    """The Silero VAD on the card against the same weights on the CPU:
+    probabilities within VAD_PROB_TOL, speech timestamps equal, for the
+    default options and for the batched pipeline's.  Returns the
+    pipeline's speech timestamps."""
+    from faster_whisper_tpu_torch.ops.mel import upload_audio
+    from faster_whisper_tpu_torch.vad import VadOptions, get_speech_timestamps, get_vad_model
+
+    padded = np.pad(audio, (0, (len(audio) // 512 + 1) * 512 - len(audio)))
+    probs, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = get_vad_model(dev)
+        model(padded)  # first call: weights and cuDNN plans
+        p, secs[dev] = _synced_seconds(lambda: model(padded).cpu().numpy())
+        probs[dev] = p
+    err = float(np.abs(probs["cuda"] - probs["cpu"]).max())
+    print(f"VAD forward over {len(padded) // 512} windows ({len(audio) / 16000:.1f} s): card "
+          f"{secs['cuda']:.4f} s, CPU {secs['cpu']:.4f} s (host -> device copy and probabilities "
+          f"back included); max|card - CPU| {err:.3e} (tolerance {VAD_PROB_TOL:.0e}) on {card}")
+    if not err <= VAD_PROB_TOL:
+        raise AssertionError("VAD probabilities on the card disagree with the CPU")
+
+    for label, opts in (
+        ("default", VadOptions()),
+        ("pipeline", VadOptions(max_speech_duration_s=30, min_silence_duration_ms=160)),
+    ):
+        on_card, sec_card = _synced_seconds(
+            lambda: get_speech_timestamps(upload_audio(audio, "cuda"), opts)
+        )
+        on_cpu = get_speech_timestamps(audio, opts, device="cpu")
+        print(f"VAD speech timestamps, {label} options: {len(on_card)} chunks on the card in "
+              f"{sec_card:.4f} s (upload, forward, state machine), {len(on_cpu)} on the CPU")
+        if on_card != on_cpu:
+            raise AssertionError(f"VAD speech timestamps ({label}) differ between card and CPU")
+    return on_card
+
+
+def check_chunked_mel(audio, speech, card):
+    """The batched pipeline's device log-mel of the speech chunks on the
+    card against the host FeatureExtractor on the same int16-grid chunks,
+    within MEL_ATOL + MEL_RTOL * |host|."""
+    from faster_whisper_tpu_torch.audio import pad_or_trim
+    from faster_whisper_tpu_torch.feature_extractor import FeatureExtractor
+    from faster_whisper_tpu_torch.ops.mel import assemble_segments, upload_audio
+    from faster_whisper_tpu_torch.vad import collect_chunks
+
+    fe = FeatureExtractor(feature_size=128)
+    grid = (np.clip(np.round(audio * 32768.0), -32768, 32767).astype(np.int16) / 32768.0).astype(np.float32)
+    chunks, _ = collect_chunks(grid, speech, max_duration=30)
+    lengths = [len(c) for c in chunks]
+    starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    concat = assemble_segments(upload_audio(audio, "cuda"), [(c["start"], c["end"]) for c in speech])
+    fe.chunk_features(concat, starts, lengths)  # first call
+    feats, sec = _synced_seconds(lambda: fe.chunk_features(concat, starts, lengths))
+    worst, err = -np.inf, 0.0
+    for i, c in enumerate(chunks):
+        want = pad_or_trim(fe(c)[..., :-1], fe.nb_max_frames)
+        got = feats[i].cpu().numpy()
+        diff = np.abs(got - want)
+        err = max(err, float(diff.max()))
+        worst = max(worst, float((diff - (MEL_ATOL + MEL_RTOL * np.abs(want))).max()))
+    print(f"chunked mel: {len(chunks)} chunks {tuple(feats.shape)} on the card in {sec:.4f} s; "
+          f"max|card - host| {err:.3e} (tolerance {MEL_ATOL:.0e} + {MEL_RTOL:.0e} x |host|) on {card}")
+    if not worst <= 0:
+        raise AssertionError("chunked log-mel on the card disagrees with the host FeatureExtractor")
+
+
+def check_small_pipeline_against_cpu(jfk):
+    """A small float32 model through ``BatchedInferencePipeline`` on the
+    card and on the CPU: on ``clip_timestamps`` (three clips at batch 2: a
+    full batch and a tail padded with a dummy row), and with the defaults
+    (VAD on, language detection, beam 5, batch 8) on ``docker/jfk.flac``,
+    which the card's run decodes from the path and the CPU's gets decoded.
+    Equal tokens and times."""
+    from faster_whisper_tpu_torch.models.config import WhisperConfig
+    from faster_whisper_tpu_torch.models.load import random_params
+    from faster_whisper_tpu_torch.testing import build_synthetic_tokenizer, synthetic_vocab_size
+    from faster_whisper_tpu_torch.transcribe import BatchedInferencePipeline, WhisperModel
+
+    cfg = WhisperConfig(
+        name="smoke-small", n_mels=128, n_audio_state=128, n_audio_head=2,
+        n_audio_layer=2, n_vocab=synthetic_vocab_size(), n_text_state=128,
+        n_text_head=2, n_text_layer=2, multilingual=True,
+    )
+    cpu = random_params(cfg, seed=5, dtype=torch.float32, device="cpu")
+    tok = build_synthetic_tokenizer()
+    models = {
+        dev: WhisperModel.from_parts(cpu, cfg, tok, compute_type="float32", device=dev)
+        for dev in ("cuda", "cpu")
+    }
+    clips = [{"start": 0.0, "end": 5.0}, {"start": 5.5, "end": 9.0}, {"start": 9.0, "end": 12.0}]
+    for label, inputs, kwargs in (
+        ("3 clips at batch 2", {"cuda": synth_audio(12.0, seed=3), "cpu": synth_audio(12.0, seed=3)},
+         dict(clip_timestamps=clips, language="en", batch_size=2)),
+        (f"{JFK_FLAC} with the defaults", {"cuda": jfk_path(), "cpu": jfk}, {}),
+    ):
+        out = {}
+        for dev, model in models.items():
+            segments, info = BatchedInferencePipeline(model).transcribe(
+                inputs[dev], max_new_tokens=32, **kwargs
+            )
+            out[dev] = [(s.start, s.end, s.tokens) for s in segments]
+        n_tokens = sum(len(t) for _, _, t in out["cpu"])
+        print(f"small float32 model through BatchedInferencePipeline, {label}: "
+              f"{len(out['cuda'])} segments on the card, {len(out['cpu'])} on the CPU, "
+              f"{n_tokens} tokens; equal: {out['cuda'] == out['cpu']}")
+        if out["cuda"] != out["cpu"]:
+            raise AssertionError(f"the batched pipeline's segments on the card differ from the "
+                                 f"CPU's ({label})")
 
 
 def _fmt(x):
@@ -875,10 +1095,19 @@ def main():
     phase("times", t0)
 
     t0 = time.perf_counter()
-    runs = run_main_path()
+    jfk, speech = tiled_speech()
+    pipeline_chunks = check_vad(speech, card)
+    phase("VAD", t0)
+    t0 = time.perf_counter()
+    check_chunked_mel(speech, pipeline_chunks, card)
+    phase("chunked mel", t0)
+
+    t0 = time.perf_counter()
+    runs = run_main_path(speech)
     phase("main path", t0)
     t0 = time.perf_counter()
     check_small_model_against_cpu()
+    check_small_pipeline_against_cpu(jfk)
     phase("small model against the CPU", t0)
 
     def entry(name, label, source, replaces, launches):
@@ -888,24 +1117,28 @@ def main():
                     **{k: t[k] for k in ("ms", "cold_ms", "call_ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")})
 
-    bf16, int8, fp32, int8_f32 = (runs[k] for k in ("bf16", "int8", "f32", "int8_f32"))
+    bf16, int8, fp32, int8_f32, req_h, req_i = (
+        runs[k] for k in ("bf16", "int8", "f32", "int8_f32", "h", "i")
+    )
     kernels = [
-        entry("beam_attend_append bf16 (K1)", "K1", "beam_attention.cu", K1_REPLACES, bf16["k1"]),
+        entry("beam_attend_append bf16 (K1)", "K1", "beam_attention.cu", K1_REPLACES,
+              bf16["k1"] + req_h["k1"]),
         entry("beam_attend_append f32 (K1)", "K1 f32", "beam_attention.cu", K1_REPLACES,
               fp32["k1_f32"]),
-        entry("beam_attend_append int8 (K2)", "K2", "beam_attention.cu", K2_REPLACES, int8["k2"]),
+        entry("beam_attend_append int8 (K2)", "K2", "beam_attention.cu", K2_REPLACES,
+              int8["k2"] + req_i["k2"]),
         entry("beam_attend_append int8, f32 activations (K2)", "K2 f32", "beam_attention.cu",
               K2_REPLACES, int8_f32["k2_f32"]),
         entry("mha_flash bf16 (K3)", "K3", "flash_attention.cu", K3_REPLACES,
-              bf16["k3"] + int8["k3"]),
+              bf16["k3"] + int8["k3"] + req_h["k3"] + req_i["k3"]),
         entry("mha_flash f32 (K3)", "K3 f32", "flash_attention.cu", K3_REPLACES,
               fp32["k3_f32"] + int8_f32["k3_f32"]),
         entry("cross_attend bf16 (K4a)", "K4 bf16", "cross_attention.cu", K4A_REPLACES,
-              bf16["k4_bf16"]),
+              bf16["k4_bf16"] + req_h["k4_bf16"]),
         entry("cross_attend f32 (K4a)", "K4 f32", "cross_attention.cu", K4A_REPLACES,
               fp32["k4_f32"]),
         entry("cross_attend int8 (K4b, K4c)", "K4 int8", "cross_attention.cu", K4B_REPLACES,
-              int8["k4_int8"]),
+              int8["k4_int8"] + req_i["k4_int8"]),
         entry("cross_attend int8, f32 activations (K4b, K4c)", "K4 int8 f32", "cross_attention.cu",
               K4B_REPLACES, int8_f32["k4_int8_f32"]),
     ]

@@ -7,10 +7,18 @@ CPU.  Submodules load lazily so that importing the package is cheap.
 
 from faster_whisper_tpu_torch.version import __version__
 
-__all__ = ["WhisperModel", "format_timestamp", "__version__"]
+__all__ = [
+    "BatchedInferencePipeline",
+    "WhisperModel",
+    "decode_audio",
+    "format_timestamp",
+    "__version__",
+]
 
 _LAZY = {
+    "BatchedInferencePipeline": ("faster_whisper_tpu_torch.transcribe", "BatchedInferencePipeline"),
     "WhisperModel": ("faster_whisper_tpu_torch.transcribe", "WhisperModel"),
+    "decode_audio": ("faster_whisper_tpu_torch.audio", "decode_audio"),
     "format_timestamp": ("faster_whisper_tpu_torch.utils", "format_timestamp"),
 }
 

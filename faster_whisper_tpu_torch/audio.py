@@ -1,10 +1,52 @@
-"""Audio-array helpers.
+"""Audio decoding and mel-frame padding.
 
-Audio reaches the port as a float32 mono array at 16 kHz: decoding files
-(PyAV, ffmpeg, the native FLAC/WAV readers) is not ported.
+The port's copy of the built-in WAV/FLAC path of
+``faster_whisper_tpu/audio.py``: a WAV or FLAC file, or a file-like object
+holding one, becomes float32 PCM at the requested sampling rate, mixed
+down to mono or split into its two channels, resampled by
+``scipy.signal.resample_poly``.  Other containers (MP3, M4A, OGG, ...)
+need PyAV or FFmpeg's libraries, which are not ported (ROADMAP.md, Queue 1
+item 10); they raise ``NotImplementedError``.
 """
 
+import os
+
+from typing import BinaryIO, Union
+
 import numpy as np
+
+from faster_whisper_tpu_torch.utils import NOT_PORTED
+
+
+def decode_audio(
+    input_file: Union[str, BinaryIO],
+    sampling_rate: int = 16000,
+    split_stereo: bool = False,
+):
+    """Decodes a WAV or FLAC file.
+
+    Args:
+      input_file: Path to the input file or a file-like object.
+      sampling_rate: Resample the audio to this sample rate.
+      split_stereo: Return separate left and right channels.
+
+    Returns:
+      A float32 Numpy array.
+
+      If `split_stereo` is enabled, the function returns a 2-tuple with the
+      separated left and right channels.
+    """
+    if isinstance(input_file, (str, os.PathLike)):
+        with open(input_file, "rb") as f:
+            data = f.read()
+    else:
+        data = input_file.read()
+
+    if data[:4] not in (b"RIFF", b"fLaC"):
+        raise NotImplementedError(
+            "decode_audio: containers other than WAV and FLAC are " + NOT_PORTED.format(10)
+        )
+    return _decode_audio_builtin(data, sampling_rate, split_stereo)
 
 
 def pad_or_trim(array: np.ndarray, length: int = 3000, *, axis: int = -1) -> np.ndarray:
@@ -21,3 +63,92 @@ def pad_or_trim(array: np.ndarray, length: int = 3000, *, axis: int = -1) -> np.
         array = np.pad(array, pad_widths)
 
     return array
+
+
+def _decode_audio_builtin(data, sampling_rate, split_stereo):
+    if data[:4] == b"RIFF":
+        samples, rate = _read_wav(data)
+    else:
+        from faster_whisper_tpu_torch.flac import decode_flac
+
+        samples, rate = decode_flac(data)
+
+    # samples: float32 (num_samples, channels) in [-1, 1)
+    if samples.ndim == 1:
+        samples = samples[:, None]
+
+    # Mix down before resampling when mono output is requested: halves the
+    # polyphase filtering work for stereo inputs.
+    if not split_stereo:
+        samples = samples.mean(axis=1, keepdims=True) if samples.shape[1] > 1 else samples
+
+    if rate != sampling_rate:
+        from math import gcd
+
+        from scipy.signal import resample_poly
+
+        g = gcd(rate, sampling_rate)
+        samples = resample_poly(samples, sampling_rate // g, rate // g, axis=0).astype(np.float32)
+
+    if split_stereo:
+        left = samples[:, 0]
+        right = samples[:, 1] if samples.shape[1] > 1 else samples[:, 0]
+        return np.ascontiguousarray(left), np.ascontiguousarray(right)
+
+    return np.ascontiguousarray(samples[:, 0].astype(np.float32))
+
+
+def _read_wav(data: bytes):
+    """Minimal RIFF/WAVE reader: PCM 8/16/24/32-bit and IEEE float."""
+    if data[8:12] != b"WAVE":
+        raise ValueError("not a WAVE file")
+    pos = 12
+    fmt = None
+    pcm = None
+    while pos + 8 <= len(data):
+        chunk_id = data[pos : pos + 4]
+        size = int.from_bytes(data[pos + 4 : pos + 8], "little")
+        body = data[pos + 8 : pos + 8 + size]
+        if chunk_id == b"fmt ":
+            fmt = body
+        elif chunk_id == b"data":
+            pcm = body
+        pos += 8 + size + (size & 1)
+    if fmt is None or pcm is None:
+        raise ValueError("malformed WAVE file")
+
+    audio_format = int.from_bytes(fmt[0:2], "little")
+    channels = int.from_bytes(fmt[2:4], "little")
+    rate = int.from_bytes(fmt[4:8], "little")
+    bits = int.from_bytes(fmt[14:16], "little")
+    if audio_format == 0xFFFE and len(fmt) >= 26:
+        # WAVE_FORMAT_EXTENSIBLE: subformat GUID starts with the format tag
+        audio_format = int.from_bytes(fmt[24:26], "little")
+
+    if audio_format == 3:  # IEEE float
+        dtype = np.float32 if bits == 32 else np.float64
+        samples = np.frombuffer(pcm, dtype=dtype).astype(np.float32)
+    elif audio_format == 1:
+        if bits == 8:
+            samples = (np.frombuffer(pcm, dtype=np.uint8).astype(np.float32) - 128.0) / 128.0
+        elif bits == 16:
+            samples = np.frombuffer(pcm, dtype="<i2").astype(np.float32) / 32768.0
+        elif bits == 24:
+            raw = np.frombuffer(pcm, dtype=np.uint8).reshape(-1, 3)
+            val = (
+                raw[:, 0].astype(np.int32)
+                | (raw[:, 1].astype(np.int32) << 8)
+                | (raw[:, 2].astype(np.int32) << 16)
+            )
+            val = (val << 8) >> 8  # sign-extend
+            samples = val.astype(np.float32) / 8388608.0
+        elif bits == 32:
+            samples = np.frombuffer(pcm, dtype="<i4").astype(np.float32) / 2147483648.0
+        else:
+            raise ValueError(f"unsupported WAV bit depth: {bits}")
+    else:
+        raise ValueError(f"unsupported WAV format tag: {audio_format}")
+
+    n = (len(samples) // channels) * channels
+    samples = samples[:n].reshape(-1, channels)
+    return samples, rate

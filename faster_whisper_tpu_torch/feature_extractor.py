@@ -8,10 +8,12 @@ matrix products with the window folded into the basis, Slaney mel
 filters, ``log10(clip(mel, 1e-10))`` clamped at the global max minus 8 over
 the valid frames, then ``(x + 4) / 4``.  The waveform is zero-padded to the
 same 1500-frame buckets as the JAX package, so the frames at the ragged
-end read the same samples.
+end read the same samples.  ``chunk_features``, the batched pipeline's
+per-chunk features, runs on the device (``ops/mel.py::chunked_log_mel``).
 """
 
 import numpy as np
+import torch
 
 _BUCKET_FRAMES = 1500
 
@@ -54,6 +56,7 @@ class FeatureExtractor:
             sampling_rate, n_fft, n_mels=feature_size
         ).astype(np.float32)
         self._cos_b, self._sin_b = dft_basis(n_fft, hann_window(n_fft))
+        self._device_constants = {}
 
     @staticmethod
     def get_mel_filters(sr, n_fft, n_mels=128):
@@ -120,3 +123,25 @@ class FeatureExtractor:
         log_spec = np.maximum(log_spec, log_spec.max() - np.float32(8.0))
         log_spec = (log_spec + np.float32(4.0)) / np.float32(4.0)
         return np.ascontiguousarray(log_spec.T, dtype=np.float32)
+
+    def chunk_features(self, audio: torch.Tensor, starts, lengths) -> torch.Tensor:
+        """Per-chunk features for the batched pipeline, on ``audio``'s
+        device.
+
+        Equivalent to ``[self(audio[s:s+l])[..., :-1]`` zero-padded to the
+        30 s window ``for s, l in zip(starts, lengths)]`` (reference:
+        transcribe.py:463-467 + :514-516).  Returns a (N, n_mels,
+        nb_max_frames) float32 tensor."""
+        from faster_whisper_tpu_torch.ops.mel import chunked_log_mel
+
+        key = str(audio.device)
+        if key not in self._device_constants:
+            self._device_constants[key] = tuple(
+                torch.as_tensor(a, device=audio.device)
+                for a in (self.mel_filters, self._cos_b, self._sin_b)
+            )
+        mel_filters, cos_b, sin_b = self._device_constants[key]
+        return chunked_log_mel(
+            audio, starts, lengths, mel_filters, cos_b, sin_b,
+            n_fft=self.n_fft, hop_length=self.hop_length, n_frames_win=self.nb_max_frames,
+        )

@@ -103,6 +103,11 @@ class WhisperEngine:
     def generate(self, encoder_output, prompts, **kwargs) -> List[WhisperGenerationResult]:
         return generate_collect(self.generate_dispatch(encoder_output, prompts, **kwargs))
 
+    @staticmethod
+    def generate_collect(pending) -> List[WhisperGenerationResult]:
+        """Unpack a ``generate_dispatch`` result on the host."""
+        return generate_collect(pending)
+
     def generate_dispatch(
         self,
         encoder_output: torch.Tensor,

@@ -1,36 +1,55 @@
 """Transcription orchestration and user API.
 
-Counterpart of ``faster_whisper_tpu/transcribe.py`` for the sequential
-``WhisperModel.transcribe``: the seek loop over 30 s windows, language
-detection, prompts, the temperature-fallback ladder and the split of
-decoded tokens into timestamped segments, with the reference's decode
-policy reproduced as the JAX package reproduces it.  Log-mel runs on the
-host; each window is sliced on the device and goes through the encoder
-(kernel K3 on the card) and the decode loop (kernels K1 and K4 on the card;
-K2 and K4's int8 form on the int8 compute types, with W8A8 int8 weights).
+Counterpart of ``faster_whisper_tpu/transcribe.py``:
+
+- ``WhisperModel.transcribe``, the sequential path: the seek loop over
+  30 s windows, language detection, prompts, the temperature-fallback
+  ladder and the split of decoded tokens into timestamped segments, with
+  the reference's decode policy reproduced as the JAX package reproduces
+  it.  Log-mel runs on the host; each window is sliced on the device.
+- ``BatchedInferencePipeline.transcribe``: the audio crosses to the device
+  once (on the int16 grid), the Silero VAD cuts it into speech chunks of
+  at most 30 s, their log-mel runs on the device, and batches of chunks
+  are encoded and beam-decoded together.
+- ``vad_filter`` on both, ``restore_speech_timestamps``, and
+  ``decode_audio`` for a path or file object (WAV and FLAC).
+
+Each encode runs kernel K3 on the card; each decode step K1 and K4 (K2 and
+K4's int8 form on the int8 compute types, with W8A8 int8 weights).
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: loading checkpoints, audio decoding from files, VAD,
-word timestamps and the int4 compute type.  ``BatchedInferencePipeline``
-is not ported either.
+ROADMAP item: loading checkpoints, containers other than WAV and FLAC,
+word timestamps, the int4 compute type and the continuous-batching
+scheduler.
 """
 
 import logging
 import zlib
 
+from collections import deque
 from dataclasses import dataclass
-from typing import Iterable, List, Optional, Tuple, Union
+from math import ceil
+from typing import BinaryIO, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from faster_whisper_tpu_torch.audio import pad_or_trim
+from faster_whisper_tpu_torch.audio import decode_audio, pad_or_trim
 from faster_whisper_tpu_torch.feature_extractor import FeatureExtractor
-from faster_whisper_tpu_torch.ops.mel import extract_window
+from faster_whisper_tpu_torch.ops.mel import assemble_segments, extract_window, upload_audio
 from faster_whisper_tpu_torch.tokenizer import _LANGUAGE_CODES, Tokenizer
-from faster_whisper_tpu_torch.utils import format_timestamp, get_logger, resolve_device
-
-_NOT_PORTED = "not ported to the PyTorch package yet (ROADMAP.md, Queue 1 item {})"
+from faster_whisper_tpu_torch.utils import (
+    NOT_PORTED,
+    format_timestamp,
+    get_logger,
+    resolve_device,
+)
+from faster_whisper_tpu_torch.vad import (
+    SpeechTimestampsMap,
+    VadOptions,
+    collect_chunks,
+    get_speech_timestamps,
+)
 
 
 @dataclass
@@ -68,9 +87,13 @@ class TranscriptionOptions:
     suppress_tokens: Optional[List[int]]
     without_timestamps: bool
     max_initial_timestamp: float
+    word_timestamps: bool
+    prepend_punctuations: str
+    append_punctuations: str
     multilingual: bool
     max_new_tokens: Optional[int]
     clip_timestamps: Union[str, List[float]]
+    hallucination_silence_threshold: Optional[float]
     hotwords: Optional[str]
 
 
@@ -82,6 +105,7 @@ class TranscriptionInfo:
     duration_after_vad: float
     all_language_probs: Optional[List[Tuple[str, float]]]
     transcription_options: TranscriptionOptions
+    vad_options: Optional[VadOptions]
 
 
 # compute_type -> activation dtype (bf16 where GPUs' CT2 uses fp16); the
@@ -102,7 +126,7 @@ _COMPUTE_TYPES = {
 class WhisperModel:
     def __init__(self, model_size_or_path: str, *args, **kwargs):
         raise NotImplementedError(
-            "loading checkpoints is " + _NOT_PORTED.format(10)
+            "loading checkpoints is " + NOT_PORTED.format(10)
             + "; build the model with WhisperModel.from_parts"
         )
 
@@ -127,7 +151,7 @@ class WhisperModel:
         from faster_whisper_tpu_torch.ops.quant import quantize_params
 
         if compute_type == "int4":
-            raise NotImplementedError("compute_type='int4' is " + _NOT_PORTED.format(11))
+            raise NotImplementedError("compute_type='int4' is " + NOT_PORTED.format(11))
         if compute_type not in _COMPUTE_TYPES:
             raise ValueError(f"unsupported compute_type: {compute_type}")
         dev = resolve_device(device)
@@ -171,7 +195,7 @@ class WhisperModel:
 
     def transcribe(
         self,
-        audio: np.ndarray,
+        audio: Union[str, BinaryIO, np.ndarray],
         language: Optional[str] = None,
         task: str = "transcribe",
         log_progress: bool = False,
@@ -200,7 +224,7 @@ class WhisperModel:
         append_punctuations: str = "\"'.。,，!！?？:：”)]}、",
         multilingual: bool = False,
         vad_filter: bool = False,
-        vad_parameters=None,
+        vad_parameters: Optional[Union[dict, VadOptions]] = None,
         max_new_tokens: Optional[int] = None,
         chunk_length: Optional[int] = None,
         clip_timestamps: Union[str, List[float]] = "0",
@@ -209,21 +233,16 @@ class WhisperModel:
         language_detection_threshold: Optional[float] = 0.5,
         language_detection_segments: int = 1,
     ) -> Tuple[Iterable[Segment], TranscriptionInfo]:
-        """Transcribe a float32 mono waveform at 16 kHz.
+        """Transcribe a file (WAV or FLAC), a file object, or a float32
+        mono waveform at 16 kHz.
 
         Same argument semantics as the JAX package's (and the reference's)
         ``WhisperModel.transcribe``; returns (lazy generator over Segment,
-        TranscriptionInfo).  ``log_progress`` logs each window at INFO."""
-        if vad_filter:
-            raise NotImplementedError("vad_filter=True: the Silero VAD is " + _NOT_PORTED.format(6))
+        TranscriptionInfo).  ``log_progress`` logs each window at INFO.
+        With ``vad_filter`` the Silero VAD runs on the model's device."""
         if word_timestamps:
             raise NotImplementedError(
-                "word_timestamps=True: cross-attention alignment is " + _NOT_PORTED.format(7)
-            )
-        if not isinstance(audio, np.ndarray):
-            raise TypeError(
-                "audio must be a float32 numpy array at 16 kHz: audio decoding is "
-                + _NOT_PORTED.format(10)
+                "word_timestamps=True: cross-attention alignment is " + NOT_PORTED.format(7)
             )
         sampling_rate = self.feature_extractor.sampling_rate
 
@@ -234,8 +253,41 @@ class WhisperModel:
             )
             multilingual = False
 
+        if not isinstance(audio, np.ndarray):
+            audio = decode_audio(audio, sampling_rate=sampling_rate)
+
         duration = audio.shape[0] / sampling_rate
+        duration_after_vad = duration
         self.logger.info("Processing audio with duration %s", format_timestamp(duration))
+
+        if vad_filter and clip_timestamps == "0":
+            if vad_parameters is None:
+                vad_parameters = VadOptions()
+            elif isinstance(vad_parameters, dict):
+                vad_parameters = VadOptions(**vad_parameters)
+            speech_chunks = get_speech_timestamps(audio, vad_parameters, device=self.device)
+            audio_chunks, _chunks_metadata = collect_chunks(audio, speech_chunks)
+            audio = np.concatenate(audio_chunks, axis=0)
+            duration_after_vad = audio.shape[0] / sampling_rate
+
+            self.logger.info(
+                "VAD filter removed %s of audio",
+                format_timestamp(duration - duration_after_vad),
+            )
+            if self.logger.isEnabledFor(logging.DEBUG):
+                self.logger.debug(
+                    "VAD filter kept the following audio segments: %s",
+                    ", ".join(
+                        "[%s -> %s]"
+                        % (
+                            format_timestamp(chunk["start"] / sampling_rate),
+                            format_timestamp(chunk["end"] / sampling_rate),
+                        )
+                        for chunk in speech_chunks
+                    ),
+                )
+        else:
+            speech_chunks = None
 
         features = self.feature_extractor(audio, chunk_length=chunk_length)
 
@@ -308,20 +360,28 @@ class WhisperModel:
             ),
             without_timestamps=without_timestamps,
             max_initial_timestamp=max_initial_timestamp,
+            word_timestamps=word_timestamps,
+            prepend_punctuations=prepend_punctuations,
+            append_punctuations=append_punctuations,
             multilingual=multilingual,
             max_new_tokens=max_new_tokens,
             clip_timestamps=clip_timestamps,
+            hallucination_silence_threshold=hallucination_silence_threshold,
             hotwords=hotwords,
         )
 
         segments = self.generate_segments(features, tokenizer, options, log_progress)
 
+        if speech_chunks:
+            segments = restore_speech_timestamps(segments, speech_chunks, sampling_rate)
+
         info = TranscriptionInfo(
             language=language,
             language_probability=language_probability,
             duration=duration,
-            duration_after_vad=duration,
+            duration_after_vad=duration_after_vad,
             transcription_options=options,
+            vad_options=vad_parameters,
             all_language_probs=all_language_probs,
         )
         return segments, info
@@ -723,16 +783,26 @@ class WhisperModel:
         self,
         audio: Optional[np.ndarray] = None,
         features: Optional[np.ndarray] = None,
+        vad_filter: bool = False,
+        vad_parameters: Optional[Union[dict, VadOptions]] = None,
         language_detection_segments: int = 1,
         language_detection_threshold: float = 0.5,
     ) -> Tuple[str, float, List[Tuple[str, float]]]:
-        """Detect the language from audio or precomputed features.
+        """Detect the language from audio or precomputed features; with
+        ``vad_filter`` from the audio's speech only.
 
         Returns (language, probability, all_language_probs)."""
         if audio is None and features is None:
             raise ValueError("Either `audio` or `features` must be provided.")
 
         if audio is not None:
+            if vad_filter:
+                if isinstance(vad_parameters, dict):
+                    vad_parameters = VadOptions(**vad_parameters)
+                speech_chunks = get_speech_timestamps(audio, vad_parameters, device=self.device)
+                audio_chunks, _ = collect_chunks(audio, speech_chunks)
+                audio = np.concatenate(audio_chunks, axis=0)
+
             audio = audio[: language_detection_segments * self.feature_extractor.n_samples]
             features = self.feature_extractor(audio)
 
@@ -763,6 +833,503 @@ class WhisperModel:
             language_probability = max(detected_language_info[language])
 
         return language, language_probability, all_language_probs
+
+
+# ---------------------------------------------------------------------------
+# Batched (VAD-chunked) pipeline (reference: transcribe.py:111-617)
+# ---------------------------------------------------------------------------
+
+
+class BatchedInferencePipeline:
+    def __init__(self, model: WhisperModel, scheduler=None):
+        """Batches the chunks of one request through ``model``.  The
+        cross-request ``scheduler`` of the JAX package is not ported."""
+        if scheduler is not None:
+            raise NotImplementedError(
+                "scheduler: continuous batching across requests is " + NOT_PORTED.format(12)
+            )
+        self.model: WhisperModel = model
+        self.last_speech_timestamp = 0.0
+        self._batch_bucket = None
+
+    def forward(self, features, tokenizer, chunks_metadata, options):
+        _, pending = self._dispatch_segment_batch(features, tokenizer, options)
+        return self._forward_collect(pending, tokenizer, chunks_metadata, options)
+
+    def _forward_collect(self, pending, tokenizer, chunks_metadata, options):
+        """Split each chunk's tokens into segments.  The pow2 bucket's dummy
+        rows have no metadata, and the zip drops them."""
+        outputs = self._collect_segment_batch(pending, options)
+
+        segmented_outputs = []
+        for chunk_metadata, output in zip(chunks_metadata, outputs):
+            duration = chunk_metadata["duration"]
+            segment_size = int(ceil(duration) * self.model.frames_per_second)
+            subsegments, _seek, _single_timestamp_ending = self.model._split_segments_by_timestamps(
+                tokenizer=tokenizer,
+                tokens=output["tokens"],
+                time_offset=chunk_metadata["offset"],
+                segment_size=segment_size,
+                segment_duration=duration,
+                seek=0,
+            )
+            segmented_outputs.append(
+                [
+                    dict(
+                        text=tokenizer.decode(subsegment["tokens"]),
+                        avg_logprob=output["avg_logprob"],
+                        no_speech_prob=output["no_speech_prob"],
+                        tokens=subsegment["tokens"],
+                        start=subsegment["start"],
+                        end=subsegment["end"],
+                        compression_ratio=get_compression_ratio(
+                            tokenizer.decode(subsegment["tokens"])
+                        ),
+                        seek=int(chunk_metadata["offset"] * self.model.frames_per_second),
+                    )
+                    for subsegment in subsegments
+                ]
+            )
+        return segmented_outputs
+
+    def generate_segment_batched(
+        self,
+        features: torch.Tensor,
+        tokenizer: Tokenizer,
+        options: TranscriptionOptions,
+    ):
+        self._batch_bucket = None  # direct calls: no bucket to share
+        encoder_output, pending = self._dispatch_segment_batch(features, tokenizer, options)
+        return encoder_output, self._collect_segment_batch(pending, options)
+
+    def _dispatch_segment_batch(
+        self,
+        features: torch.Tensor,
+        tokenizer: Tokenizer,
+        options: TranscriptionOptions,
+    ):
+        """Encode a batch of chunk features and run its beam decode."""
+        batch_size = features.shape[0]
+        # A trailing partial batch is padded up to the full batches' bucket,
+        # and otherwise the batch axis to the next power of two, with dummy
+        # rows that repeat the last chunk; their outputs are dropped at
+        # unpack.  A stale tail bucket from an earlier generator run must
+        # not stop a larger direct forward() call from taking its pow2.
+        pad_to = self._batch_bucket
+        if pad_to is None or batch_size > pad_to:
+            pad_to = 1
+            while pad_to < batch_size:
+                pad_to *= 2
+        features = torch.as_tensor(features, device=self.model.device)
+        if 0 < batch_size < pad_to:
+            reps = features[-1:].expand((pad_to - batch_size,) + tuple(features.shape[1:]))
+            features = torch.cat([features, reps], dim=0)
+            batch_size = pad_to
+
+        prompt = self.model.get_prompt(
+            tokenizer,
+            previous_tokens=(
+                tokenizer.encode(options.initial_prompt)
+                if options.initial_prompt is not None
+                else []
+            ),
+            without_timestamps=options.without_timestamps,
+            hotwords=options.hotwords,
+        )
+
+        if options.max_new_tokens is not None:
+            max_length = len(prompt) + options.max_new_tokens
+        else:
+            max_length = self.model.max_length
+
+        if max_length > self.model.max_length:
+            raise ValueError(
+                f"The length of the prompt is {len(prompt)}, and the `max_new_tokens` "
+                f"{max_length - len(prompt)}. Thus, the combined length of the prompt "
+                f"and `max_new_tokens` is: {max_length}. This exceeds the "
+                f"`max_length` of the Whisper model: {self.model.max_length}. "
+                "You should either reduce the length of your prompt, or "
+                "reduce the value of `max_new_tokens`, "
+                f"so that their combined length is less that {self.model.max_length}."
+            )
+
+        encoder_output = self.model.encode(features)
+        prompts = [prompt.copy() for _ in range(batch_size)]
+
+        if options.multilingual:
+            language_tokens = [
+                tokenizer.tokenizer.token_to_id(segment_langs[0][0])
+                for segment_langs in self.model.model.detect_language(encoder_output)
+            ]
+            language_token_index = prompt.index(tokenizer.language)
+            for i, language_token in enumerate(language_tokens):
+                prompts[i][language_token_index] = language_token
+
+        pending = self.model.model.generate_dispatch(
+            encoder_output,
+            prompts,
+            beam_size=options.beam_size,
+            patience=options.patience,
+            length_penalty=options.length_penalty,
+            max_length=max_length,
+            suppress_blank=options.suppress_blank,
+            suppress_tokens=options.suppress_tokens,
+            sampling_temperature=options.temperatures[0],
+            repetition_penalty=options.repetition_penalty,
+            no_repeat_ngram_size=options.no_repeat_ngram_size,
+        )
+        return encoder_output, pending
+
+    def _collect_segment_batch(self, pending, options: TranscriptionOptions):
+        """Fetch the decoded sequences and unpack them."""
+        output = []
+        for result in self.model.model.generate_collect(pending):
+            seq_len = len(result.sequences_ids[0])
+            cum_logprob = result.scores[0] * (seq_len ** options.length_penalty)
+            output.append(
+                dict(
+                    avg_logprob=cum_logprob / (seq_len + 1),
+                    no_speech_prob=result.no_speech_prob,
+                    tokens=result.sequences_ids[0],
+                )
+            )
+        return output
+
+    def transcribe(
+        self,
+        audio: Union[str, BinaryIO, np.ndarray],
+        language: Optional[str] = None,
+        task: str = "transcribe",
+        log_progress: bool = False,
+        beam_size: int = 5,
+        best_of: int = 5,
+        patience: float = 1,
+        length_penalty: float = 1,
+        repetition_penalty: float = 1,
+        no_repeat_ngram_size: int = 0,
+        temperature: Union[float, List[float], Tuple[float, ...]] = [
+            0.0, 0.2, 0.4, 0.6, 0.8, 1.0,
+        ],
+        compression_ratio_threshold: Optional[float] = 2.4,
+        log_prob_threshold: Optional[float] = -1.0,
+        no_speech_threshold: Optional[float] = 0.6,
+        condition_on_previous_text: bool = True,
+        prompt_reset_on_temperature: float = 0.5,
+        initial_prompt: Optional[Union[str, Iterable[int]]] = None,
+        prefix: Optional[str] = None,
+        suppress_blank: bool = True,
+        suppress_tokens: Optional[List[int]] = [-1],
+        without_timestamps: bool = True,
+        max_initial_timestamp: float = 1.0,
+        word_timestamps: bool = False,
+        prepend_punctuations: str = "\"'“¿([{-",
+        append_punctuations: str = "\"'.。,，!！?？:：”)]}、",
+        multilingual: bool = False,
+        vad_filter: bool = True,
+        vad_parameters: Optional[Union[dict, VadOptions]] = None,
+        max_new_tokens: Optional[int] = None,
+        chunk_length: Optional[int] = None,
+        clip_timestamps: Optional[List[dict]] = None,
+        hallucination_silence_threshold: Optional[float] = None,
+        batch_size: int = 8,
+        hotwords: Optional[str] = None,
+        language_detection_threshold: Optional[float] = 0.5,
+        language_detection_segments: int = 1,
+    ) -> Tuple[Iterable[Segment], TranscriptionInfo]:
+        """Batched transcription over VAD (or user-provided) chunks.
+
+        Same argument semantics as the JAX package's (and the reference's)
+        BatchedInferencePipeline (reference: transcribe.py:254-375); the
+        forced overrides (one temperature, no conditioning,
+        max_initial_timestamp=0) match :518-553.  ``clip_timestamps`` is a
+        list of {"start", "end"} dicts in seconds.  ``log_progress`` logs
+        each batch at INFO."""
+        if word_timestamps:
+            raise NotImplementedError(
+                "word_timestamps=True: cross-attention alignment is " + NOT_PORTED.format(7)
+            )
+        model = self.model
+        sampling_rate = model.feature_extractor.sampling_rate
+
+        if multilingual and not model.model.is_multilingual:
+            model.logger.warning(
+                "The current model is English-only but the multilingual parameter is"
+                " set to True; setting to False instead."
+            )
+            multilingual = False
+
+        if not isinstance(audio, np.ndarray):
+            audio = decode_audio(audio, sampling_rate=sampling_rate)
+        duration = audio.shape[0] / sampling_rate
+
+        model.logger.info("Processing audio with duration %s", format_timestamp(duration))
+
+        chunk_length = chunk_length or model.feature_extractor.chunk_length
+
+        # One host->device transfer on the int16 grid feeds both the VAD and
+        # the speech concat that the features are computed from.
+        audio_dev = upload_audio(audio, model.device)
+
+        if not clip_timestamps:
+            if vad_filter:
+                if vad_parameters is None:
+                    vad_parameters = VadOptions(
+                        max_speech_duration_s=chunk_length,
+                        min_silence_duration_ms=160,
+                    )
+                elif isinstance(vad_parameters, dict):
+                    if "max_speech_duration_s" in vad_parameters.keys():
+                        vad_parameters.pop("max_speech_duration_s")
+                    vad_parameters = VadOptions(
+                        **vad_parameters, max_speech_duration_s=chunk_length
+                    )
+                clip_timestamps = get_speech_timestamps(audio_dev, vad_parameters)
+            elif duration < chunk_length:
+                clip_timestamps = [{"start": 0, "end": audio.shape[0]}]
+            else:
+                raise RuntimeError(
+                    "No clip timestamps found. "
+                    "Set 'vad_filter' to True or provide 'clip_timestamps'."
+                )
+
+            clip_timestamps_provided = False
+            audio_chunks, chunks_metadata = collect_chunks(
+                audio, clip_timestamps, max_duration=chunk_length
+            )
+        else:
+            clip_timestamps_provided = True
+            clip_timestamps = [
+                {k: int(v * sampling_rate) for k, v in segment.items()}
+                for segment in clip_timestamps
+            ]
+
+            audio_chunks, chunks_metadata = [], []
+            for i, clip in enumerate(clip_timestamps):
+                audio_chunks.append(audio[clip["start"] : clip["end"]])
+                clip_duration = (clip["end"] - clip["start"]) / sampling_rate
+                if clip_duration > 30:
+                    model.logger.warning(
+                        "Segment %d is longer than 30 seconds, "
+                        "only the first 30 seconds will be transcribed",
+                        i,
+                    )
+                chunks_metadata.append(
+                    {
+                        "offset": clip["start"] / sampling_rate,
+                        "duration": clip_duration,
+                        "segments": [clip],
+                    }
+                )
+
+        duration_after_vad = (
+            sum((segment["end"] - segment["start"]) for segment in clip_timestamps)
+            / sampling_rate
+        )
+
+        model.logger.info(
+            "VAD filter removed %s of audio",
+            format_timestamp(duration - duration_after_vad),
+        )
+
+        # Per-chunk features on the device, from the speech concat rebuilt
+        # there (the chunks are consecutive in it).
+        chunk_lengths = [len(c) for c in audio_chunks]
+        if duration_after_vad:
+            n_total = len(audio)  # numpy slicing clamps; match it
+            base_audio = assemble_segments(
+                audio_dev,
+                [(min(c["start"], n_total), min(c["end"], n_total)) for c in clip_timestamps],
+            )
+            chunk_starts = np.concatenate([[0], np.cumsum(chunk_lengths)[:-1]])
+            features = model.feature_extractor.chunk_features(
+                base_audio, chunk_starts, chunk_lengths
+            )  # (N, n_mels, 3000), already window-padded
+        else:
+            features = []
+
+        all_language_probs = None
+        if language is None:
+            if not model.model.is_multilingual:
+                language = "en"
+                language_probability = 1
+            else:
+                # The reference concatenates the *unpadded* per-chunk
+                # features plus a dummy column (transcribe.py:481-490).
+                # detect_language keeps language_detection_segments windows,
+                # so only the chunks that cover them leave the device.
+                hop = model.feature_extractor.hop_length
+                nb_max = model.feature_extractor.nb_max_frames
+                unpadded_lens = [max((cl + 160) // hop - 1, 0) for cl in chunk_lengths]
+                n_take, frames_taken = 0, 0
+                while n_take < len(unpadded_lens) and frames_taken < (
+                    language_detection_segments * nb_max
+                ):
+                    frames_taken += unpadded_lens[n_take]
+                    n_take += 1
+                feats_np = features[:n_take].cpu().numpy() if n_take else None
+                unpadded = (
+                    [feats_np[i][:, : unpadded_lens[i]] for i in range(n_take)]
+                    if feats_np is not None
+                    else []
+                )
+                (
+                    language,
+                    language_probability,
+                    all_language_probs,
+                ) = model.detect_language(
+                    features=np.concatenate(
+                        unpadded + [np.full((model.model.n_mels, 1), -1.5, dtype="float32")],
+                        axis=1,
+                    ),  # dummy column so empty audio still has features
+                    language_detection_segments=language_detection_segments,
+                    language_detection_threshold=language_detection_threshold,
+                )
+                model.logger.info(
+                    "Detected language '%s' with probability %.2f",
+                    language,
+                    language_probability,
+                )
+        else:
+            if not model.model.is_multilingual and language != "en":
+                model.logger.warning(
+                    "The current model is English-only but the language parameter is"
+                    " set to '%s'; using 'en' instead." % language
+                )
+                language = "en"
+            language_probability = 1
+
+        tokenizer = Tokenizer(
+            model.hf_tokenizer, model.model.is_multilingual, task=task, language=language
+        )
+
+        options = TranscriptionOptions(
+            beam_size=beam_size,
+            best_of=best_of,
+            patience=patience,
+            length_penalty=length_penalty,
+            repetition_penalty=repetition_penalty,
+            no_repeat_ngram_size=no_repeat_ngram_size,
+            log_prob_threshold=log_prob_threshold,
+            no_speech_threshold=no_speech_threshold,
+            compression_ratio_threshold=compression_ratio_threshold,
+            temperatures=(
+                temperature[:1] if isinstance(temperature, (list, tuple)) else [temperature]
+            ),
+            initial_prompt=initial_prompt,
+            prefix=prefix,
+            suppress_blank=suppress_blank,
+            suppress_tokens=(
+                get_suppressed_tokens(tokenizer, suppress_tokens)
+                if suppress_tokens
+                else suppress_tokens
+            ),
+            prepend_punctuations=prepend_punctuations,
+            append_punctuations=append_punctuations,
+            max_new_tokens=max_new_tokens,
+            hotwords=hotwords,
+            word_timestamps=word_timestamps,
+            hallucination_silence_threshold=None,
+            condition_on_previous_text=False,
+            clip_timestamps=clip_timestamps,
+            prompt_reset_on_temperature=0.5,
+            multilingual=multilingual,
+            without_timestamps=without_timestamps,
+            max_initial_timestamp=0.0,
+        )
+
+        info = TranscriptionInfo(
+            language=language,
+            language_probability=language_probability,
+            duration=duration,
+            duration_after_vad=duration_after_vad,
+            transcription_options=options,
+            vad_options=vad_parameters,
+            all_language_probs=all_language_probs,
+        )
+
+        segments = self._batched_segments_generator(
+            features, tokenizer, chunks_metadata, batch_size, options, log_progress
+        )
+        if not clip_timestamps_provided:
+            segments = restore_speech_timestamps(segments, clip_timestamps, sampling_rate)
+
+        return segments, info
+
+    def _batched_segments_generator(
+        self, features, tokenizer, chunks_metadata, batch_size, options, log_progress
+    ):
+        seg_idx = 0
+        starts = list(range(0, len(features), batch_size))
+        # A trailing partial batch of at least half a batch is padded to the
+        # full batches' size; a smaller one takes its own pow2 bucket.
+        tail = len(features) % batch_size
+        self._batch_bucket = (
+            batch_size if len(features) > batch_size and tail >= batch_size // 2 else None
+        )
+
+        # The JAX package's order: the next batch is dispatched before this
+        # one is collected and again after, with at most two in flight.
+        in_flight = deque()  # (start, pending)
+        next_idx = 0
+
+        def dispatch_next():
+            nonlocal next_idx
+            if len(in_flight) < 2 and next_idx < len(starts):
+                start = starts[next_idx]
+                next_idx += 1
+                _, pending = self._dispatch_segment_batch(
+                    features[start : start + batch_size], tokenizer, options
+                )
+                in_flight.append((start, pending))
+
+        dispatch_next()
+
+        for bi in range(len(starts)):
+            i, pending = in_flight.popleft()
+            dispatch_next()
+            results = self._forward_collect(
+                pending, tokenizer, chunks_metadata[i : i + batch_size], options
+            )
+            dispatch_next()
+            if log_progress:
+                self.model.logger.info(
+                    "Processed batch %d of %d (chunks %d-%d of %d)",
+                    bi + 1, len(starts), i + 1, min(i + batch_size, len(features)), len(features),
+                )
+
+            for result in results:
+                for segment in result:
+                    seg_idx += 1
+                    yield Segment(
+                        seek=segment["seek"],
+                        id=seg_idx,
+                        text=segment["text"],
+                        start=round(segment["start"], 3),
+                        end=round(segment["end"], 3),
+                        words=None,
+                        tokens=segment["tokens"],
+                        avg_logprob=segment["avg_logprob"],
+                        no_speech_prob=segment["no_speech_prob"],
+                        compression_ratio=segment["compression_ratio"],
+                        temperature=options.temperatures[0],
+                    )
+
+        self.last_speech_timestamp = 0.0
+
+
+def restore_speech_timestamps(
+    segments: Iterable[Segment],
+    speech_chunks: List[dict],
+    sampling_rate: int,
+) -> Iterable[Segment]:
+    """Map VAD-compressed segment times back to the original clock.  Word
+    times come with word timestamps (ROADMAP.md, Queue 1 item 7)."""
+    ts_map = SpeechTimestampsMap(speech_chunks, sampling_rate)
+
+    for segment in segments:
+        segment.start = ts_map.get_original_time(segment.start)
+        segment.end = ts_map.get_original_time(segment.end, is_end=True)
+        yield segment
 
 
 def get_compression_ratio(text: str) -> float:

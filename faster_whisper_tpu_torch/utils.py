@@ -1,6 +1,9 @@
-"""Host-side helpers: timestamps, logging and device selection."""
+"""Host-side helpers: timestamps, logging, device selection and the
+float32 scope of the feature paths."""
 
+import contextlib
 import logging
+import threading
 
 import torch
 
@@ -24,6 +27,30 @@ def resolve_device(device="cuda") -> torch.device:
             "on the host"
         )
     return dev
+
+
+# The refusal of a feature that the port does not have yet names its item.
+NOT_PORTED = "not ported to the PyTorch package yet (ROADMAP.md, Queue 1 item {})"
+
+_TF32_LOCK = threading.RLock()
+
+
+@contextlib.contextmanager
+def exact_float32():
+    """Run float32 matmuls, convolutions and cuDNN RNNs without TF32
+    inside the block, then restore the caller's settings.  The VAD and the
+    device log-mel feed thresholds and a global-max clamp, which TF32's
+    10-bit mantissa visibly moves.  The flags are process-wide: the lock
+    keeps two threads in such blocks from restoring each other's values."""
+    with _TF32_LOCK:
+        matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = matmul
+            torch.backends.cudnn.allow_tf32 = cudnn
 
 
 def format_timestamp(

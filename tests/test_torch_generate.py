@@ -39,6 +39,18 @@ from faster_whisper_tpu_torch.testing import build_synthetic_tokenizer
 SCORE_TOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port's many small CPU ops: under the
+    suite's parallel workers, more threads wait at every op's barrier for
+    cores that the other workers hold (a VAD call took 35 s so, 0.3 s on
+    one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _no_shipped_compile_cache(monkeypatch):
     """The JAX side runs without the shipped compile-cache entries."""

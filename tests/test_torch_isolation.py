@@ -1,8 +1,12 @@
 """The port stands alone: it runs where there is no JAX, no ``tokenizers``,
-no ``huggingface_hub``, no PyAV and no JAX package.  A subprocess refuses those imports with a meta-path finder,
-imports every module of ``faster_whisper_tpu_torch`` and ``chip_smoke``,
-runs a tiny transcribe on the CPU, and checks that the card is the default
-device.  A second test reads the sources for such imports."""
+no ``huggingface_hub``, no PyAV, no ``tqdm`` and no JAX package.  A
+subprocess refuses those imports with a meta-path finder, imports every
+module of ``faster_whisper_tpu_torch`` and ``chip_smoke``, runs a tiny
+transcribe and a tiny batched transcribe of ``docker/jfk.flac`` (decoded
+by the port, VAD on) on the CPU, and checks that the card is the default
+device.  A second test reads the sources for such imports.  scipy, which
+resamples in ``decode_audio``, is imported there lazily and is installed
+wherever the port runs."""
 
 import ast
 import os
@@ -13,9 +17,16 @@ import textwrap
 import jax  # noqa: F401  (test files import both frameworks)
 import torch  # noqa: F401
 
+# Imported while every xdist worker collects the suite, before any test
+# runs: the module fixture of tests/test_reference_parity.py leaves a stub
+# ``onnxruntime`` without ``__spec__`` in sys.modules, and a first import of
+# torch._dynamo after it (through transformers' generate, in
+# tests/test_hf_*_parity.py on the same worker) raises (ROADMAP.md, Queue 3).
+import torch._dynamo  # noqa: F401,E402
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "faster_whisper_tpu_torch")
-BLOCKED = ("jax", "jaxlib", "tokenizers", "huggingface_hub", "av", "faster_whisper_tpu")
+BLOCKED = ("jax", "jaxlib", "tokenizers", "huggingface_hub", "av", "tqdm", "faster_whisper_tpu")
 
 
 def _blocked(name: str) -> bool:
@@ -44,7 +55,9 @@ CHILD = textwrap.dedent(
     for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
         importlib.import_module(mod.name)
 
-    from faster_whisper_tpu_torch import WhisperModel, format_timestamp
+    from faster_whisper_tpu_torch import (
+        BatchedInferencePipeline, WhisperModel, decode_audio, format_timestamp,
+    )
     from faster_whisper_tpu_torch.models.config import tiny_test_config
     from faster_whisper_tpu_torch.models.load import random_params
     from faster_whisper_tpu_torch.testing import build_synthetic_tokenizer
@@ -59,6 +72,14 @@ CHILD = textwrap.dedent(
     segments = list(segments)
     assert info.language in model.supported_languages
     print("segments", len(segments), format_timestamp(info.duration))
+
+    speech = decode_audio("docker/jfk.flac")
+    segments, info = BatchedInferencePipeline(model).transcribe(
+        speech, batch_size=2, beam_size=2, max_new_tokens=8
+    )
+    segments = list(segments)
+    assert segments and 0 < info.duration_after_vad <= info.duration == 11.0
+    print("batched segments", len(segments), info.language)
 
     assert not torch.cuda.is_available()
     try:
@@ -76,7 +97,8 @@ CHILD = textwrap.dedent(
 
 
 def test_port_runs_without_jax_tokenizers_or_the_jax_package():
-    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
+    # one intra-op thread, as the other port tests run (test_torch_vad.py)
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", CHILD % (BLOCKED,)],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,

@@ -5,16 +5,21 @@ port's ``int8_float32`` on the CPU against the JAX package's ``int8`` on
 float32 weights: both quantize the weights and the KV caches to int8 and
 keep float32 activations).  Text, tokens and start/end must
 be equal and ``avg_logprob`` within 1e-4 (float32 sums of log-probs over a
-few dozen tokens, taken in another order).  The JAX side runs with
-FWT_CACHE_ARTIFACTS=/nonexistent, so no shipped compile-cache entry takes
-part."""
+few dozen tokens, taken in another order).  ``vad_filter=True`` runs on
+``docker/jfk.flac`` tiled to 33 s, each package with its own Silero VAD.
+The JAX side runs with FWT_CACHE_ARTIFACTS=/nonexistent, so no shipped
+compile-cache entry takes part."""
+
+import io
+import os
 
 import numpy as np
 import pytest
 
 import jax
-import torch  # noqa: F401  (test files import both frameworks)
+import torch
 
+from faster_whisper_tpu.audio import decode_audio as jax_decode_audio
 from faster_whisper_tpu.models.config import tiny_test_config as jax_config
 from faster_whisper_tpu.models.load import random_params as jax_random_params
 from faster_whisper_tpu.testing import build_synthetic_tokenizer as jax_tokenizer
@@ -25,6 +30,7 @@ from faster_whisper_tpu_torch.testing import build_synthetic_tokenizer
 from faster_whisper_tpu_torch.transcribe import WhisperModel
 
 LOGPROB_TOL = 1e-4
+JFK = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "docker", "jfk.flac")
 
 OPTION_SETS = {
     "initial-prompt": dict(initial_prompt="hello world"),
@@ -49,6 +55,18 @@ def synth_audio(seconds: float, seed: int) -> np.ndarray:
     gate = np.sin(2 * np.pi * 0.5 * t) > 0
     x = 0.3 * np.sin(2 * np.pi * 220 * t) * gate + 0.05 * rng.standard_normal(t.size)
     return x.astype(np.float32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port's many small CPU ops: under the
+    suite's parallel workers, more threads wait at every op's barrier for
+    cores that the other workers hold (a VAD call took 35 s so, 0.3 s on
+    one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -124,7 +142,7 @@ def test_fallback_ladder_samples_and_yields_well_formed_segments(models):
 
 @pytest.mark.parametrize(
     "option,item",
-    [("vad_filter", 6), ("word_timestamps", 7), ("int4", 11), ("checkpoint", 10)],
+    [("word_timestamps", 7), ("int4", 11), ("checkpoint", 10)],
 )
 def test_options_outside_the_slice_raise(weights, option, item):
     """Each refusal names its own ROADMAP.md Queue 1 item."""
@@ -134,7 +152,7 @@ def test_options_outside_the_slice_raise(weights, option, item):
     )
     audio = synth_audio(1.0, seed=3)
     match = rf"\(ROADMAP\.md, Queue 1 item {item}\)"
-    if option in ("vad_filter", "word_timestamps"):
+    if option == "word_timestamps":
         with pytest.raises(NotImplementedError, match=match):
             pm.transcribe(audio, **{option: True})
     elif option == "int4":
@@ -143,11 +161,52 @@ def test_options_outside_the_slice_raise(weights, option, item):
                 pm.model.params, tiny_test_config(), build_synthetic_tokenizer(),
                 compute_type="int4", device="cpu",
             )
-    else:  # checkpoints and audio files
-        with pytest.raises(TypeError, match=match):
-            pm.transcribe("speech.flac")
+    else:  # checkpoints, and containers other than WAV and FLAC
+        with pytest.raises(NotImplementedError, match=match):
+            pm.transcribe(io.BytesIO(b"ID3\x04" + bytes(60)))
         with pytest.raises(NotImplementedError, match=match):
             WhisperModel("large-v3")
+
+
+@pytest.fixture(scope="module")
+def speech():
+    """docker/jfk.flac decoded by the JAX package, tiled to 33 s."""
+    return np.tile(jax_decode_audio(JFK, sampling_rate=16000), 3)
+
+
+@pytest.mark.parametrize(
+    "vad_parameters",
+    [None, dict(min_silence_duration_ms=160, speech_pad_ms=100)],
+    ids=["default", "short-silences"],
+)
+def test_vad_filter_segments_match_jax(models, speech, vad_parameters):
+    """``vad_filter=True`` on the sequential path: the speech of the
+    Silero VAD (the port's on the CPU, the JAX package's), concatenated,
+    transcribed, and its times mapped back to the original clock."""
+    jm, pm = models
+    kwargs = dict(
+        beam_size=5, temperature=0.0, max_new_tokens=48, vad_filter=True,
+        vad_parameters=vad_parameters, suppress_tokens=[-1] + list(range(257, 1865)),
+    )
+    ref_segments, ref_info = jm.transcribe(speech, **kwargs)
+    ref_segments = list(ref_segments)
+    segments, info = pm.transcribe(speech, **kwargs)
+    segments = list(segments)
+
+    assert info.duration_after_vad == ref_info.duration_after_vad <= info.duration
+    if vad_parameters:  # silences between the sentences are cut
+        assert info.duration_after_vad < info.duration - 1.0
+    assert vars(info.vad_options) == vars(ref_info.vad_options)
+    assert info.language == ref_info.language
+    assert len(segments) == len(ref_segments) > 0
+    for s, r in zip(segments, ref_segments):
+        assert (s.id, s.seek, s.text, s.tokens) == (r.id, r.seek, r.text, r.tokens)
+        assert (s.start, s.end) == (r.start, r.end)
+        assert s.avg_logprob == pytest.approx(r.avg_logprob, abs=LOGPROB_TOL)
+    # the language of the speech only, as the JAX package detects it
+    ours = pm.detect_language(speech, vad_filter=True, vad_parameters=info.vad_options)
+    ref = jm.detect_language(speech, vad_filter=True, vad_parameters=ref_info.vad_options)
+    assert ours[0] == ref[0] and ours[1] == pytest.approx(ref[1], abs=1e-5)
 
 
 @pytest.mark.parametrize("base_vocab", [256, 50257])

@@ -1,0 +1,138 @@
+"""The port's Silero VAD and speech-chunk bookkeeping against the JAX
+package's.
+
+The audio is ``docker/jfk.flac`` decoded by the JAX ``decode_audio``,
+tiled three times and put on the int16 grid that both packages' uploads
+apply.  Both VADs read the same ``silero_vad_v6.npz``.  Probabilities
+within 2e-5: float32 on both sides (the JAX forward at HIGHEST precision),
+with the STFT, the conv tower and the 128-wide LSTM gates summed in other
+orders over ~2,000 windows (measured ~7e-6).  Speech timestamps, chunk
+buffers, their metadata and the restored times must be equal.  The JAX
+side runs with FWT_CACHE_ARTIFACTS=/nonexistent."""
+
+import os
+
+import numpy as np
+import pytest
+
+import jax  # noqa: F401  (test files import both frameworks)
+import torch
+
+from faster_whisper_tpu import vad as jvad
+from faster_whisper_tpu.audio import decode_audio as jax_decode_audio
+from faster_whisper_tpu.models.silero import SileroVAD as JaxSileroVAD
+from faster_whisper_tpu.transcribe import Segment as JaxSegment
+from faster_whisper_tpu.transcribe import restore_speech_timestamps as jax_restore
+from faster_whisper_tpu_torch import vad as pvad
+from faster_whisper_tpu_torch.models.silero import SileroVAD
+from faster_whisper_tpu_torch.transcribe import Segment, restore_speech_timestamps
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JFK = os.path.join(ROOT, "docker", "jfk.flac")
+PROB_TOL = 2e-5
+SR = 16000
+
+CHUNK_LISTS = {
+    "none": [],
+    "one": [{"start": 1000, "end": 9000}],
+    "gaps": [{"start": 0, "end": 4000}, {"start": 6000, "end": 20000}, {"start": 20500, "end": 40000}],
+    "long": [{"start": 100, "end": 200000}, {"start": 260000, "end": 300000}],
+    "many-short": [{"start": 5000 * i + 700, "end": 5000 * i + 3100} for i in range(12)],
+}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port's many small CPU ops: under the
+    suite's parallel workers, more threads wait at every op's barrier for
+    cores that the other workers hold (a VAD call took 35 s so, 0.3 s on
+    one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def _no_shipped_compile_cache(monkeypatch):
+    monkeypatch.setenv("FWT_CACHE_ARTIFACTS", "/nonexistent")
+
+
+@pytest.fixture(scope="module")
+def speech():
+    """jfk.flac, 16 kHz mono, tiled to 33 s, on the int16 grid."""
+    audio = np.tile(jax_decode_audio(JFK, sampling_rate=SR), 3)
+    q = np.clip(np.round(audio * 32768.0), -32768, 32767).astype(np.int16)
+    return (q / 32768.0).astype(np.float32)
+
+
+def test_silero_probabilities_match_jax(speech):
+    x = speech[: len(speech) // 512 * 512]
+    ref = JaxSileroVAD()(x)
+    ours = SileroVAD("cpu")(x)
+    assert ours.device.type == "cpu" and ours.dtype == torch.float32
+    assert ours.shape == ref.shape == (len(x) // 512,)
+    np.testing.assert_allclose(ours.numpy(), ref, atol=PROB_TOL, rtol=0)
+    # speech and silence both occur, so the thresholds are exercised
+    assert ref.max() > 0.9 and ref.min() < 0.1
+
+
+@pytest.mark.parametrize(
+    "options",
+    [{}, dict(max_speech_duration_s=30, min_silence_duration_ms=160),
+     dict(threshold=0.6, min_speech_duration_ms=250, speech_pad_ms=100)],
+    ids=["default", "pipeline", "stricter"],
+)
+def test_speech_timestamps_match_jax(speech, options):
+    ref = jvad.get_speech_timestamps(speech, jvad.VadOptions(**options))
+    ours = pvad.get_speech_timestamps(speech, pvad.VadOptions(**options), device="cpu")
+    assert ours == ref and len(ref) >= 1
+    # a tensor already on the device gives the same chunks
+    on_device = pvad.get_speech_timestamps(torch.from_numpy(speech), pvad.VadOptions(**options))
+    assert on_device == ref
+
+
+def test_speech_timestamps_of_silence_and_of_nothing():
+    for audio in (np.zeros(16000, np.float32), np.zeros(0, np.float32), np.zeros(1024, np.float32)):
+        assert pvad.get_speech_timestamps(audio, device="cpu") == jvad.get_speech_timestamps(audio)
+
+
+@pytest.mark.parametrize("max_duration", [float("inf"), 2.0, 30.0])
+@pytest.mark.parametrize("chunks", list(CHUNK_LISTS.values()), ids=list(CHUNK_LISTS))
+def test_collect_chunks_matches_jax(chunks, max_duration):
+    audio = np.random.default_rng(0).standard_normal(320000).astype(np.float32)
+    ref_audio, ref_meta = jvad.collect_chunks(audio, chunks, max_duration=max_duration)
+    ours_audio, ours_meta = pvad.collect_chunks(audio, chunks, max_duration=max_duration)
+    assert ours_meta == ref_meta
+    assert len(ours_audio) == len(ref_audio)
+    for a, b in zip(ours_audio, ref_audio):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize(
+    "chunks", [c for c in CHUNK_LISTS.values() if c], ids=[k for k, c in CHUNK_LISTS.items() if c]
+)
+def test_speech_timestamps_map_and_restore_match_jax(chunks):
+    ref_map = jvad.SpeechTimestampsMap(chunks, SR)
+    ours_map = pvad.SpeechTimestampsMap(chunks, SR)
+    kept = sum(c["end"] - c["start"] for c in chunks) / SR
+    # a grid over the kept audio, and each chunk's end exactly (is_end)
+    times = list(np.linspace(0.0, kept + 0.5, 97)) + [e / SR for e in ref_map.chunk_end_sample]
+    for t in times:
+        for is_end in (False, True):
+            assert ours_map.get_chunk_index(t, is_end) == ref_map.get_chunk_index(t, is_end)
+            assert ours_map.get_original_time(t, is_end=is_end) == ref_map.get_original_time(t, is_end=is_end)
+
+    spans = [(float(a), float(b)) for a, b in zip(times[:-1:3], times[1::3]) if b >= a]
+
+    def segments(cls):
+        return [
+            cls(id=i, seek=0, start=a, end=b, text="x", tokens=[1], avg_logprob=-0.5,
+                compression_ratio=1.0, no_speech_prob=0.1, words=None, temperature=0.0)
+            for i, (a, b) in enumerate(spans)
+        ]
+
+    ref = list(jax_restore(segments(JaxSegment), chunks, SR))
+    ours = list(restore_speech_timestamps(segments(Segment), chunks, SR))
+    assert [(s.start, s.end) for s in ours] == [(s.start, s.end) for s in ref]
+    assert len(ours) == len(spans) > 10
