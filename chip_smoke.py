@@ -47,7 +47,23 @@ Phases, each printing its own line with its seconds:
    int8_float32, against the same model on the CPU; then at float32
    through the pipeline, on ``clip_timestamps`` and with the defaults on
    ``docker/jfk.flac`` given as a path, whose tokens on the card must
-   equal those on the CPU.
+   equal those on the CPU;
+9. checkpoints: the large-v3-turbo weights of phase 7 written as a
+   CTranslate2 directory with a float16 ``model.bin`` and as one with an
+   int8 ``model.bin`` (int8 linear weights with per-row scales, the rest
+   float16), each with ``config.json``, ``preprocessor_config.json`` and a
+   full-width ``tokenizer.json`` with BPE merges, under ``build/``;
+   request j, ``WhisperModel(directory)`` with its defaults (the card,
+   bf16) on 20 s at beam 5, whose loaded weights must equal the
+   float16-rounded weights bit for bit and whose segments must equal
+   ``from_parts`` on them; request k, ``WhisperModel(directory,
+   compute_type="int8")`` through the pipeline as in request i; each with
+   the launch counts of phase 7.  A small model written as an HF
+   safetensors directory, on the card against the CPU (equal tokens).
+   ``docker/jfk.flac`` through the native FLAC decoder, bit for bit the
+   numpy decoder's samples.  Load, write and decode times and file sizes
+   are printed beside the card's name and power limit; the directories
+   are deleted at the end.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as the last line
@@ -91,6 +107,19 @@ K2_REPLACES = "faster_whisper_tpu/ops/beam_attention.py:91"
 K3_REPLACES = "faster_whisper_tpu/ops/attention.py:123"
 K4A_REPLACES = "faster_whisper_tpu/ops/beam_attention.py:715"
 K4B_REPLACES = "faster_whisper_tpu/ops/beam_attention.py:535"  # and K4c, :605
+
+# Words that the written tokenizer.json merges into one token each.
+MERGED_WORDS = (
+    " the and of to a in is you that it he was for on are as with his they I at be this"
+    " have from or one had by word but not what all were we when your can said there use"
+    " an each which she do how their if will up other about out many then them these so"
+    " some her would make like him into time has look two more write go see number no way"
+    " could people my than first water been call who its now find long down day did get"
+    " come made may part country ask fellow Americans And So"
+).split(" ")[1:]
+MERGED_WORDS = tuple(" " + w for w in MERGED_WORDS)
+# (layer, head) pairs written into the CT2 config.json and read back.
+ALIGNMENT_HEADS = ((2, 4), (2, 11), (3, 3), (3, 6), (3, 11), (3, 14))
 
 
 def phase(name, t0):
@@ -1024,6 +1053,172 @@ def check_small_pipeline_against_cpu(jfk):
                                  f"CPU's ({label})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: checkpoints
+# ---------------------------------------------------------------------------
+
+
+def _dir_bytes(path):
+    import os
+
+    return {f: os.path.getsize(os.path.join(path, f)) for f in sorted(os.listdir(path))}
+
+
+def _segment_keys(segments):
+    return [(s.seek, s.start, s.end, s.text, tuple(s.tokens)) for s in segments]
+
+
+def check_native_flac(card):
+    """``docker/jfk.flac`` through the native decoder and the numpy one:
+    the same float32 samples, bit for bit; both times printed."""
+    from faster_whisper_tpu_torch.flac import decode_flac, decode_flac_native
+
+    with open(jfk_path(), "rb") as f:
+        data = f.read()
+    native, sec_native = _synced_seconds(lambda: decode_flac_native(data))
+    plain, sec_plain = _synced_seconds(lambda: decode_flac(data))
+    same = native[1] == plain[1] and native[0].shape == plain[0].shape and np.array_equal(
+        native[0].view(np.uint32), plain[0].view(np.uint32)
+    )
+    print(f"{JFK_FLAC} ({len(data)} bytes, {native[0].shape[0]} samples x {native[0].shape[1]} "
+          f"channels at {native[1]} Hz): native decoder {sec_native:.4f} s, numpy decoder "
+          f"{sec_plain:.4f} s on the host of {card}; bit-equal samples: {same}")
+    if not same:
+        raise AssertionError("the native FLAC decoder's samples differ from the numpy decoder's")
+
+
+def check_small_hf_against_cpu(root, card):
+    """A small float32 model written as an HF safetensors directory by the
+    port's writer, loaded by ``WhisperModel(directory)`` on the card and on
+    the CPU: the alignment heads read back, and equal tokens and times of
+    ``transcribe`` at beam 5."""
+    import dataclasses
+    import os
+
+    from faster_whisper_tpu_torch.models.config import WhisperConfig
+    from faster_whisper_tpu_torch.models.load import random_params
+    from faster_whisper_tpu_torch.testing import tokenizer_json, word_merges, write_hf_dir
+    from faster_whisper_tpu_torch.transcribe import WhisperModel
+
+    base_vocab = 1024
+    cfg = WhisperConfig(
+        name="smoke-small-hf", n_mels=128, n_audio_state=128, n_audio_head=2,
+        n_audio_layer=2, n_vocab=base_vocab + 1609, n_text_state=128, n_text_head=2,
+        n_text_layer=2, alignment_heads=((1, 0), (1, 1)),
+    )
+    hf_dir = os.path.join(root, "small-hf")
+    write_hf_dir(hf_dir, random_params(cfg, seed=7, dtype=torch.float32, device="cpu"), cfg,
+                 tokenizer_json(base_vocab, word_merges(MERGED_WORDS)))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = WhisperModel(hf_dir, device=dev, compute_type="float32")
+        if dataclasses.replace(model.model.config, name=cfg.name) != cfg:
+            raise AssertionError(f"HF config read back as {model.model.config}")
+        segments, _ = model.transcribe(synth_audio(12.0, seed=3), language="en", beam_size=5,
+                                       temperature=0.0, max_new_tokens=32)
+        out[dev] = [(s.start, s.end, s.tokens) for s in segments]
+    n_tokens = sum(len(t) for _, _, t in out["cpu"])
+    print(f"small float32 model from an HF safetensors directory ({_dir_bytes(hf_dir)} bytes), "
+          f"transcribe at beam 5: {len(out['cuda'])} segments on the card, {len(out['cpu'])} "
+          f"on the CPU, {n_tokens} tokens; equal: {out['cuda'] == out['cpu']} on {card}")
+    if out["cuda"] != out["cpu"]:
+        raise AssertionError("the HF directory's model on the card differs from the CPU's")
+
+
+def run_checkpoints(speech, card):
+    """Phase 9: write the large-v3-turbo CT2 directories, then requests j
+    (float16 model.bin, defaults) and k (int8 model.bin, int8, through the
+    pipeline), the small HF directory and the native FLAC decode.  Returns
+    the launch counts of j and k, each set to 0 just before its run."""
+    import dataclasses
+    import os
+    import shutil
+
+    from faster_whisper_tpu_torch.bpe import BPETokenizer
+    from faster_whisper_tpu_torch.models.config import CONFIGS
+    from faster_whisper_tpu_torch.models.load import random_params
+    from faster_whisper_tpu_torch.testing import tokenizer_json, word_merges, write_ct2_dir
+    from faster_whisper_tpu_torch.transcribe import WhisperModel
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", f"checkpoints_{os.getpid()}")
+    os.makedirs(root)
+    try:
+        cfg = dataclasses.replace(CONFIGS["large-v3-turbo"], alignment_heads=ALIGNMENT_HEADS)
+        tok_text = tokenizer_json(50257, word_merges(MERGED_WORDS))
+        params = random_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+        dirs = {"float16": os.path.join(root, "ct2-float16"), "int8": os.path.join(root, "ct2-int8")}
+        for weights, d in (("float16", dirs["float16"]), ("int8_float16", dirs["int8"])):
+            sec = _synced_seconds(lambda: write_ct2_dir(d, params, cfg, tok_text, weights=weights))[1]
+            print(f"CT2 directory, {weights} model.bin: {_dir_bytes(d)} bytes, written in {sec:.3f} s "
+                  f"on the host of {card}")
+        # what a float16 model.bin holds, at the default compute type
+        rounded = {}
+
+        def round_f16(tree, out):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    round_f16(v, out.setdefault(k, {}))
+                else:
+                    out[k] = v.to(torch.float16).to(torch.bfloat16)
+
+        round_f16(params, rounded)
+        del params
+
+        model, sec = _synced_seconds(lambda: WhisperModel(dirs["float16"]))
+        cfg_read = model.model.config
+        print(f"request j: WhisperModel(CT2 float16 directory) loaded in {sec:.3f} s on {card}: "
+              f"{cfg_read.n_audio_layer}/{cfg_read.n_text_layer} layers, vocab {cfg_read.n_vocab}, "
+              f"tokenizer vocab {model.hf_tokenizer.get_vocab_size()}, alignment heads "
+              f"{cfg_read.alignment_heads}")
+        if dataclasses.replace(cfg_read, name=cfg.name) != cfg:
+            raise AssertionError(f"CT2 config read back as {cfg_read}")
+
+        def leaves(tree, prefix=""):
+            for k, v in tree.items():
+                yield from leaves(v, prefix + k + "/") if isinstance(v, dict) else [(prefix + k, v)]
+
+        loaded = dict(leaves(model.model.params))
+        diff = [k for k, v in leaves(rounded) if not torch.equal(loaded.pop(k), v)]
+        if diff or loaded:
+            raise AssertionError(f"loaded weights differ from the float16-rounded ones: {diff}, {list(loaded)}")
+        clip = synth_audio(20.0, seed=2)
+        def request_j():
+            segments, info = model.transcribe(clip, beam_size=5)
+            return list(segments), info
+
+        reset_counts()
+        (segments, info), sec = _synced_seconds(request_j)
+        counts = {"j": read_counts()}
+        check_segments(segments, info, len(clip) / 16000, cfg.n_vocab)
+        got = _segment_keys(segments)
+        print(f"request j: CT2 float16 model.bin, defaults, 20 s, beam 5: {len(got)} segments, "
+              f"{sum(len(k[4]) for k in got)} tokens, {sec:.3f} s on {card}")
+        print(f"main path counts, j: {counts['j']}")
+        check_counts(counts["j"], per_step=("k1", "k4_bf16"), per_encode="k3", cfg=cfg)
+        del model
+        ref = WhisperModel.from_parts(rounded, cfg_read, BPETokenizer.from_str(tok_text))
+        want = _segment_keys(ref.transcribe(clip, beam_size=5)[0])
+        del ref, rounded
+        print(f"request j against from_parts on the float16-rounded weights: equal segments and "
+              f"tokens: {got == want}")
+        if got != want:
+            raise AssertionError("the loaded CT2 model's segments differ from from_parts on the same weights")
+
+        model, sec = _synced_seconds(lambda: WhisperModel(dirs["int8"], compute_type="int8"))
+        print(f"request k: WhisperModel(CT2 int8 directory, compute_type='int8') loaded in "
+              f"{sec:.3f} s on {card}")
+        counts["k"] = run_batched(model, "k: CT2 int8 model.bin, int8", speech, cfg)
+        check_counts(counts["k"], per_step=("k2", "k4_int8"), per_encode="k3", cfg=cfg)
+        del model
+        torch.cuda.empty_cache()
+
+        check_small_hf_against_cpu(root, card)
+        check_native_flac(card)
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _fmt(x):
     return "n/a" if x is None else f"{x:.4f} ms"
 
@@ -1109,6 +1304,9 @@ def main():
     check_small_model_against_cpu()
     check_small_pipeline_against_cpu(jfk)
     phase("small model against the CPU", t0)
+    t0 = time.perf_counter()
+    runs.update(run_checkpoints(speech, card))
+    phase("checkpoints", t0)
 
     def entry(name, label, source, replaces, launches):
         t = times[label]
@@ -1117,28 +1315,28 @@ def main():
                     **{k: t[k] for k in ("ms", "cold_ms", "call_ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")})
 
-    bf16, int8, fp32, int8_f32, req_h, req_i = (
-        runs[k] for k in ("bf16", "int8", "f32", "int8_f32", "h", "i")
+    bf16, int8, fp32, int8_f32, req_h, req_i, req_j, req_k = (
+        runs[k] for k in ("bf16", "int8", "f32", "int8_f32", "h", "i", "j", "k")
     )
     kernels = [
         entry("beam_attend_append bf16 (K1)", "K1", "beam_attention.cu", K1_REPLACES,
-              bf16["k1"] + req_h["k1"]),
+              bf16["k1"] + req_h["k1"] + req_j["k1"]),
         entry("beam_attend_append f32 (K1)", "K1 f32", "beam_attention.cu", K1_REPLACES,
               fp32["k1_f32"]),
         entry("beam_attend_append int8 (K2)", "K2", "beam_attention.cu", K2_REPLACES,
-              int8["k2"] + req_i["k2"]),
+              int8["k2"] + req_i["k2"] + req_k["k2"]),
         entry("beam_attend_append int8, f32 activations (K2)", "K2 f32", "beam_attention.cu",
               K2_REPLACES, int8_f32["k2_f32"]),
         entry("mha_flash bf16 (K3)", "K3", "flash_attention.cu", K3_REPLACES,
-              bf16["k3"] + int8["k3"] + req_h["k3"] + req_i["k3"]),
+              bf16["k3"] + int8["k3"] + req_h["k3"] + req_i["k3"] + req_j["k3"] + req_k["k3"]),
         entry("mha_flash f32 (K3)", "K3 f32", "flash_attention.cu", K3_REPLACES,
               fp32["k3_f32"] + int8_f32["k3_f32"]),
         entry("cross_attend bf16 (K4a)", "K4 bf16", "cross_attention.cu", K4A_REPLACES,
-              bf16["k4_bf16"] + req_h["k4_bf16"]),
+              bf16["k4_bf16"] + req_h["k4_bf16"] + req_j["k4_bf16"]),
         entry("cross_attend f32 (K4a)", "K4 f32", "cross_attention.cu", K4A_REPLACES,
               fp32["k4_f32"]),
         entry("cross_attend int8 (K4b, K4c)", "K4 int8", "cross_attention.cu", K4B_REPLACES,
-              int8["k4_int8"] + req_i["k4_int8"]),
+              int8["k4_int8"] + req_i["k4_int8"] + req_k["k4_int8"]),
         entry("cross_attend int8, f32 activations (K4b, K4c)", "K4 int8 f32", "cross_attention.cu",
               K4B_REPLACES, int8_f32["k4_int8_f32"]),
     ]

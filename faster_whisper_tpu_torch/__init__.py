@@ -8,17 +8,21 @@ CPU.  Submodules load lazily so that importing the package is cheap.
 from faster_whisper_tpu_torch.version import __version__
 
 __all__ = [
-    "BatchedInferencePipeline",
-    "WhisperModel",
+    "available_models",
     "decode_audio",
+    "WhisperModel",
+    "BatchedInferencePipeline",
+    "download_model",
     "format_timestamp",
     "__version__",
 ]
 
 _LAZY = {
-    "BatchedInferencePipeline": ("faster_whisper_tpu_torch.transcribe", "BatchedInferencePipeline"),
-    "WhisperModel": ("faster_whisper_tpu_torch.transcribe", "WhisperModel"),
     "decode_audio": ("faster_whisper_tpu_torch.audio", "decode_audio"),
+    "WhisperModel": ("faster_whisper_tpu_torch.transcribe", "WhisperModel"),
+    "BatchedInferencePipeline": ("faster_whisper_tpu_torch.transcribe", "BatchedInferencePipeline"),
+    "available_models": ("faster_whisper_tpu_torch.utils", "available_models"),
+    "download_model": ("faster_whisper_tpu_torch.utils", "download_model"),
     "format_timestamp": ("faster_whisper_tpu_torch.utils", "format_timestamp"),
 }
 

@@ -4,7 +4,8 @@ The port's copy of the built-in WAV/FLAC path of
 ``faster_whisper_tpu/audio.py``: a WAV or FLAC file, or a file-like object
 holding one, becomes float32 PCM at the requested sampling rate, mixed
 down to mono or split into its two channels, resampled by
-``scipy.signal.resample_poly``.  Other containers (MP3, M4A, OGG, ...)
+``scipy.signal.resample_poly``.  FLAC decodes through the native decoder
+(``flac.py::decode_flac_native``).  Other containers (MP3, M4A, OGG, ...)
 need PyAV or FFmpeg's libraries, which are not ported (ROADMAP.md, Queue 1
 item 10); they raise ``NotImplementedError``.
 """
@@ -69,9 +70,9 @@ def _decode_audio_builtin(data, sampling_rate, split_stereo):
     if data[:4] == b"RIFF":
         samples, rate = _read_wav(data)
     else:
-        from faster_whisper_tpu_torch.flac import decode_flac
+        from faster_whisper_tpu_torch.flac import decode_flac_native
 
-        samples, rate = decode_flac(data)
+        samples, rate = decode_flac_native(data)
 
     # samples: float32 (num_samples, channels) in [-1, 1)
     if samples.ndim == 1:

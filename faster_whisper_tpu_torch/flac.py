@@ -1,12 +1,15 @@
-"""Built-in FLAC decoder, in pure Python and numpy.
+"""FLAC decoding: the native decoder and its plain numpy version.
 
-The port's own copy of ``faster_whisper_tpu/flac.py``, so that FLAC
-decodes where neither PyAV nor ffmpeg is installed.  The native C++ fast
-path of the JAX package is not ported (ROADMAP.md, Queue 1 item 10).
+``decode_flac_native`` runs the port's C++ decoder
+(``csrc/flac_decoder.cpp``, built with the host ``g++`` at first use by
+``ops/_build.py``); ``decode_audio`` decodes FLAC through it.
+``decode_flac`` is the same decoder in pure Python and numpy, the port's
+copy of ``faster_whisper_tpu/flac.py``: the plain version that the tests
+hold the native one to, sample for sample.
 
-Implements the FLAC stream format: STREAMINFO metadata, frame headers with
-UTF-8 coded ordinals, constant/verbatim/fixed/LPC subframes, Rice-coded
-residual partitions, and left-side/right-side/mid-side stereo
+Both implement the FLAC stream format: STREAMINFO metadata, frame headers
+with UTF-8 coded ordinals, constant/verbatim/fixed/LPC subframes,
+Rice-coded residual partitions, and left-side/right-side/mid-side stereo
 decorrelation.
 """
 
@@ -190,6 +193,39 @@ def _decode_subframe(br: _BitReader, blocksize: int, bps: int) -> np.ndarray:
     if wasted:
         samples <<= wasted
     return samples
+
+
+def decode_flac_native(data: bytes) -> Tuple[np.ndarray, int]:
+    """Decode a FLAC stream with the native library.
+
+    Returns (samples, sample_rate) where samples is float32 of shape
+    (num_samples, channels) scaled to [-1, 1), equal to ``decode_flac``'s.
+    Raises ``ValueError`` on a malformed stream, and ``RuntimeError`` when
+    the library does not build.
+    """
+    import ctypes
+
+    from faster_whisper_tpu_torch.ops import _build
+
+    lib = _build.load("flac_decoder.cpp")
+    samples = ctypes.POINTER(ctypes.c_int32)()
+    n = ctypes.c_int64()
+    channels, rate, bps = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
+    rc = lib.fwt_flac_decode(
+        bytes(data), len(data), ctypes.byref(samples), ctypes.byref(n),
+        ctypes.byref(channels), ctypes.byref(rate), ctypes.byref(bps),
+    )
+    if rc != 0:
+        raise ValueError(f"malformed FLAC stream (native decoder code {rc})")
+    try:
+        count = n.value * channels.value
+        pcm = np.zeros(0, np.float32)
+        if count:
+            pcm = np.ctypeslib.as_array(samples, shape=(count,)).astype(np.float32)
+    finally:
+        lib.fwt_flac_free(samples)
+    scale = float(1 << (bps.value - 1))
+    return pcm.reshape(n.value, channels.value) / scale, int(rate.value)
 
 
 def decode_flac(data: bytes) -> Tuple[np.ndarray, int]:

@@ -24,7 +24,7 @@ class WhisperConfig:
     n_text_head: int = 6
     n_text_layer: int = 4
     # (layer, head) pairs of cross-attention heads that track time
-    # alignment (word timestamps, not ported yet).
+    # alignment (word timestamps, not ported yet), read from checkpoints.
     alignment_heads: Tuple[Tuple[int, int], ...] = ()
     # None -> infer from the vocabulary size (multilingual vocabs are
     # >= 51865); tests override.
@@ -85,6 +85,34 @@ CONFIGS = {
     ),
     "turbo": _cfg("turbo", 1280, 20, 32, dec_layer=4, n_mels=128, n_vocab=51866),
 }
+
+
+def config_from_dims(
+    n_mels: int,
+    n_audio_state: int,
+    n_audio_head: int,
+    n_audio_layer: int,
+    n_text_state: int,
+    n_text_head: int,
+    n_text_layer: int,
+    n_vocab: int,
+    name: str = "custom",
+    alignment_heads=(),
+) -> WhisperConfig:
+    """The config of a checkpoint, from the dimensions its weights and
+    config file give; ``is_multilingual`` follows the vocabulary size."""
+    return WhisperConfig(
+        name=name,
+        n_mels=n_mels,
+        n_audio_state=n_audio_state,
+        n_audio_head=n_audio_head,
+        n_audio_layer=n_audio_layer,
+        n_text_state=n_text_state,
+        n_text_head=n_text_head,
+        n_text_layer=n_text_layer,
+        n_vocab=n_vocab,
+        alignment_heads=tuple(tuple(int(x) for x in h) for h in alignment_heads),
+    )
 
 
 def tiny_test_config(

@@ -1,11 +1,13 @@
-"""Builds the port's CUDA kernels with ``nvcc`` and loads them with ctypes.
+"""Builds the port's native sources and loads them with ctypes.
 
 Each source under ``csrc/`` has a plain C interface and becomes one shared
 library under ``build/torch_kernels/`` at the root of the checkout, named
 after a hash of the source and the compiler flags: an unchanged source is
-built once and then reused.  The build runs at first use, or for every
-source at once (one ``nvcc`` per source, started together) through
-``build()``.  A failed build raises; nothing falls back to a plain version.
+built once and then reused.  The CUDA kernels (``.cu``) are built with
+``nvcc``; the host libraries (``.cpp``, the FLAC decoder) with the host
+``g++``.  The build runs at first use, or for every source at once (one
+compiler per source, started together) through ``build()``.  A failed
+build raises; nothing falls back to a plain version.
 """
 
 import ctypes
@@ -26,6 +28,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -48,7 +51,16 @@ SIGNATURES = {
         "fwt_mha_flash_bf16": [_P] * 4 + [_I] * 3 + [_F, _P],
         "fwt_mha_flash_f32": [_P] * 4 + [_I] * 3 + [_F, _P],
     },
+    # returns 0 or a negative code for a malformed stream
+    "flac_decoder.cpp": {
+        "fwt_flac_decode": [
+            ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ctypes.POINTER(ctypes.c_int32)),
+            ctypes.POINTER(ctypes.c_int64), *[ctypes.POINTER(ctypes.c_int32)] * 3,
+        ],
+        "fwt_flac_free": [ctypes.POINTER(ctypes.c_int32)],
+    },
 }
+_VOID = {"fwt_flac_free"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -64,18 +76,32 @@ def _nvcc() -> str:
     return path
 
 
+def _gxx() -> str:
+    path = shutil.which("g++")
+    if path is None:
+        raise RuntimeError("g++ not found on PATH: the host libraries are built from source at first use")
+    return path
+
+
+def _command(source: str):
+    """(compiler, flags) of ``source``; the compiler is looked up at build."""
+    if source.endswith(".cu"):
+        return _nvcc, NVCC_FLAGS
+    return _gxx, HOST_FLAGS
+
+
 def library_path(source: str) -> Path:
     digest = hashlib.sha256(
-        (CSRC_DIR / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+        (CSRC_DIR / source).read_bytes() + " ".join(_command(source)[1]).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
 
 
 def build(sources: Optional[Iterable[str]] = None) -> Dict[str, str]:
-    """Build the libraries that are missing, one ``nvcc`` per source, all
-    started together.  Returns {source: compiler output} (the ``-Xptxas
-    -v`` register and shared-memory lines), "(cached)" for a library that
-    was already built.  Raises if any build fails."""
+    """Build the libraries that are missing, one compiler per source, all
+    started together.  Returns {source: compiler output} (for the kernels
+    the ``-Xptxas -v`` register and shared-memory lines), "(cached)" for a
+    library that was already built.  Raises if any build fails."""
     sources = list(SIGNATURES if sources is None else sources)
     logs, procs = {}, {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -85,7 +111,8 @@ def build(sources: Optional[Iterable[str]] = None) -> Dict[str, str]:
             logs[src] = "(cached)"
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / src)]
+        compiler, flags = _command(src)
+        cmd = [compiler(), *flags, "-o", str(tmp), str(CSRC_DIR / src)]
         procs[src] = (
             subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -98,11 +125,11 @@ def build(sources: Optional[Iterable[str]] = None) -> Dict[str, str]:
         text, _ = proc.communicate()
         logs[src] = text
         if proc.returncode != 0:
-            failed.append(f"{src} (nvcc exit {proc.returncode}):\n{text}")
+            failed.append(f"{src} (exit {proc.returncode}):\n{text}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise RuntimeError("native build failed:\n" + "\n".join(failed))
     return logs
 
 
@@ -116,7 +143,7 @@ def load(source: str) -> ctypes.CDLL:
             for name, argtypes in SIGNATURES[source].items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = None if name in _VOID else ctypes.c_int
             _libs[source] = lib
         return lib
 

@@ -17,17 +17,27 @@ Counterpart of ``faster_whisper_tpu/transcribe.py``:
 Each encode runs kernel K3 on the card; each decode step K1 and K4 (K2 and
 K4's int8 form on the int8 compute types, with W8A8 int8 weights).
 
+``WhisperModel(model_size_or_path)`` loads a CTranslate2 (``model.bin``)
+or HF safetensors directory, or the same files held in memory
+(``files=``), with its ``tokenizer.json`` (``bpe.py``) and
+``preprocessor_config.json``; a size name or repo id resolves in the local
+Hugging Face cache only (``utils.py::download_model``): the port
+downloads nothing.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: loading checkpoints, containers other than WAV and FLAC,
-word timestamps, the int4 compute type and the continuous-batching
-scheduler.
+ROADMAP item: containers other than WAV and FLAC, word timestamps, the
+int4 compute type, the continuous-batching scheduler and more than one
+device.
 """
 
+import json
 import logging
+import os
 import zlib
 
 from collections import deque
 from dataclasses import dataclass
+from inspect import signature
 from math import ceil
 from typing import BinaryIO, Iterable, List, Optional, Tuple, Union
 
@@ -40,6 +50,7 @@ from faster_whisper_tpu_torch.ops.mel import assemble_segments, extract_window, 
 from faster_whisper_tpu_torch.tokenizer import _LANGUAGE_CODES, Tokenizer
 from faster_whisper_tpu_torch.utils import (
     NOT_PORTED,
+    download_model,
     format_timestamp,
     get_logger,
     resolve_device,
@@ -123,11 +134,117 @@ _COMPUTE_TYPES = {
 }
 
 
+def _check_compute_type(compute_type: str) -> None:
+    if compute_type == "int4":
+        raise NotImplementedError("compute_type='int4' is " + NOT_PORTED.format(11))
+    if compute_type not in _COMPUTE_TYPES:
+        raise ValueError(f"unsupported compute_type: {compute_type}")
+
+
+def _model_device(device, device_index: int) -> torch.device:
+    """``"auto"``, ``"cuda"`` and ``"cuda:N"`` are the card (``device_index``
+    picks it for the first two), ``"cpu"`` the host; without a card the
+    card raises, with no fallback to the host."""
+    if device in ("auto", "cuda"):
+        device = f"cuda:{device_index}"
+    if str(device).split(":")[0] not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device: {device!r} (the card, 'cuda', or 'cpu')")
+    return resolve_device(device)
+
+
 class WhisperModel:
-    def __init__(self, model_size_or_path: str, *args, **kwargs):
-        raise NotImplementedError(
-            "loading checkpoints is " + NOT_PORTED.format(10)
-            + "; build the model with WhisperModel.from_parts"
+    def __init__(
+        self,
+        model_size_or_path: str,
+        device: str = "auto",
+        device_index: Union[int, List[int]] = 0,
+        compute_type: str = "default",
+        cpu_threads: int = 0,
+        num_workers: int = 1,
+        download_root: Optional[str] = None,
+        local_files_only: bool = False,
+        files: Optional[dict] = None,
+        revision: Optional[str] = None,
+        use_auth_token: Optional[Union[str, bool]] = None,
+        tensor_parallel: int = 1,
+        int4_group_size: Optional[int] = None,
+        **model_kwargs,
+    ):
+        """Load a Whisper model.
+
+        ``model_size_or_path`` is a CTranslate2-converted directory
+        (``model.bin``), an HF-format directory (``*.safetensors``), or a
+        size name (tiny..large-v3, turbo, distil-*) or Hub repo id found in
+        the local Hugging Face cache (``download_model``; nothing is
+        downloaded).  ``files`` holds the directory's files in memory (name
+        -> bytes or file-like) instead.  The directory must hold
+        ``tokenizer.json``.  ``device`` is the card (``"auto"``, ``"cuda"``,
+        ``"cuda:N"``, with ``device_index``) or ``"cpu"``; without a card
+        the card raises.  ``compute_type``: default/float16/bfloat16 ->
+        bf16, float32, and the int8 types (W8A8 weights, int8 KV caches).
+        ``cpu_threads`` and ``num_workers`` are accepted and ignored."""
+        from faster_whisper_tpu_torch.bpe import BPETokenizer
+        from faster_whisper_tpu_torch.models.load import load_model, read_blob
+
+        self.logger = get_logger()
+        if isinstance(device_index, (list, tuple)):
+            if len(device_index) > 1:
+                raise NotImplementedError(
+                    "device_index with more than one device is " + NOT_PORTED.format(13)
+                )
+            device_index = device_index[0]
+        if tensor_parallel > 1:
+            raise NotImplementedError("tensor_parallel > 1 is " + NOT_PORTED.format(13))
+        if int4_group_size is not None:
+            raise NotImplementedError("int4_group_size (int4) is " + NOT_PORTED.format(11))
+        _check_compute_type(compute_type)
+        dev = _model_device(device, device_index)
+        if cpu_threads:
+            self.logger.warning(
+                "cpu_threads=%d is ignored: the model runs on its device and "
+                "PyTorch manages host threading.", cpu_threads,
+            )
+        if num_workers != 1:
+            self.logger.warning(
+                "num_workers=%d is ignored: use BatchedInferencePipeline for "
+                "parallel throughput.", num_workers,
+            )
+
+        tokenizer_bytes, preprocessor_bytes = None, None
+        if files:
+            files = dict(files)
+            model_path = model_size_or_path
+            tokenizer_bytes = files.pop("tokenizer.json", None)
+            preprocessor_bytes = files.pop("preprocessor_config.json", None)
+        elif os.path.isdir(model_size_or_path):
+            model_path = model_size_or_path
+        else:
+            model_path = download_model(
+                model_size_or_path,
+                local_files_only=local_files_only,
+                cache_dir=download_root,
+                revision=revision,
+                use_auth_token=use_auth_token,
+            )
+
+        tokenizer_file = os.path.join(model_path, "tokenizer.json")
+        if tokenizer_bytes is not None:
+            hf_tokenizer = BPETokenizer.from_buffer(read_blob(tokenizer_bytes))
+        elif os.path.isfile(tokenizer_file):
+            hf_tokenizer = BPETokenizer.from_file(tokenizer_file)
+        else:
+            raise FileNotFoundError(
+                f"{model_path!r} has no tokenizer.json; the port reads the "
+                "vocabulary from the model's own files and downloads none"
+            )
+
+        params, config = load_model(
+            model_path, dtype=_COMPUTE_TYPES[compute_type], files=files, device=dev
+        )
+        self._setup(
+            params, config, hf_tokenizer,
+            self._get_feature_kwargs(model_path, config, preprocessor_bytes),
+            compute_type, dev,
         )
 
     @classmethod
@@ -147,14 +264,19 @@ class WhisperModel:
         kernels take bfloat16 and float32.  The int8 compute types then
         quantize the cast tree (``ops/quant.py::quantize_params``) and
         decode over int8 KV caches."""
+        _check_compute_type(compute_type)
+        self = cls.__new__(cls)
+        self.logger = get_logger()
+        self._setup(
+            params, config, hf_tokenizer, feature_extractor_kwargs, compute_type,
+            resolve_device(device),
+        )
+        return self
+
+    def _setup(self, params, config, hf_tokenizer, feature_extractor_kwargs, compute_type, dev):
         from faster_whisper_tpu_torch.models.engine import WhisperEngine
         from faster_whisper_tpu_torch.ops.quant import quantize_params
 
-        if compute_type == "int4":
-            raise NotImplementedError("compute_type='int4' is " + NOT_PORTED.format(11))
-        if compute_type not in _COMPUTE_TYPES:
-            raise ValueError(f"unsupported compute_type: {compute_type}")
-        dev = resolve_device(device)
         dtype = _COMPUTE_TYPES[compute_type]
 
         def move(tree):
@@ -162,24 +284,43 @@ class WhisperModel:
                 return {k: move(v) for k, v in tree.items()}
             return tree.to(device=dev, dtype=dtype)
 
-        self = cls.__new__(cls)
-        self.logger = get_logger()
         self.hf_tokenizer = hf_tokenizer
         kv_int8 = compute_type.startswith("int8")
         params = move(params)
         if kv_int8:
             params = quantize_params(params)
         self.model = WhisperEngine(params, config, hf_tokenizer, kv_int8=kv_int8)
-        kwargs = dict(feature_extractor_kwargs or {})
-        kwargs.setdefault("feature_size", config.n_mels)
-        self.feature_extractor = FeatureExtractor(**kwargs)
+        self.feat_kwargs = dict(feature_extractor_kwargs or {})
+        self.feat_kwargs.setdefault("feature_size", config.n_mels)
+        self.feature_extractor = FeatureExtractor(**self.feat_kwargs)
         self.input_stride = 2
         self.frames_per_second = (
             self.feature_extractor.sampling_rate // self.feature_extractor.hop_length
         )
         self.time_precision = 0.02
         self.max_length = 448
-        return self
+
+    def _get_feature_kwargs(self, model_path, config, preprocessor_bytes=None) -> dict:
+        """The FeatureExtractor arguments of ``preprocessor_config.json``
+        (from ``files=`` or the directory).  ``feature_size`` defaults to
+        the model's mel count, with the file or without one."""
+        from faster_whisper_tpu_torch.models.load import read_blob
+
+        kwargs = {}
+        config_path = os.path.join(model_path, "preprocessor_config.json")
+        try:
+            if preprocessor_bytes is not None:
+                kwargs = json.loads(read_blob(preprocessor_bytes))
+            elif os.path.isfile(config_path):
+                with open(config_path, "r", encoding="utf-8") as f:
+                    kwargs = json.load(f)
+        except json.JSONDecodeError as e:
+            self.logger.warning("Could not load preprocessor config: %s", e)
+            kwargs = {}
+        valid_keys = signature(FeatureExtractor.__init__).parameters.keys()
+        kwargs = {k: v for k, v in kwargs.items() if k in valid_keys and k != "self"}
+        kwargs.setdefault("feature_size", config.n_mels)
+        return kwargs
 
     @property
     def device(self) -> torch.device:

@@ -1,11 +1,114 @@
-"""Host-side helpers: timestamps, logging, device selection and the
-float32 scope of the feature paths."""
+"""Host-side helpers: the model registry and its local-cache lookup,
+timestamps, logging, device selection and the float32 scope of the feature
+paths."""
 
 import contextlib
 import logging
+import os
+import re
 import threading
 
+from typing import List, Optional, Union
+
 import torch
+
+# Name -> Hugging Face repo of the CTranslate2 conversion, the registry of
+# faster-whisper.
+_MODELS = {
+    "tiny.en": "Systran/faster-whisper-tiny.en",
+    "tiny": "Systran/faster-whisper-tiny",
+    "base.en": "Systran/faster-whisper-base.en",
+    "base": "Systran/faster-whisper-base",
+    "small.en": "Systran/faster-whisper-small.en",
+    "small": "Systran/faster-whisper-small",
+    "medium.en": "Systran/faster-whisper-medium.en",
+    "medium": "Systran/faster-whisper-medium",
+    "large-v1": "Systran/faster-whisper-large-v1",
+    "large-v2": "Systran/faster-whisper-large-v2",
+    "large-v3": "Systran/faster-whisper-large-v3",
+    "large": "Systran/faster-whisper-large-v3",
+    "distil-large-v2": "Systran/faster-distil-whisper-large-v2",
+    "distil-medium.en": "Systran/faster-distil-whisper-medium.en",
+    "distil-small.en": "Systran/faster-distil-whisper-small.en",
+    "distil-large-v3": "Systran/faster-distil-whisper-large-v3",
+    "distil-large-v3.5": "distil-whisper/distil-large-v3.5-ct2",
+    "large-v3-turbo": "mobiuslabsgmbh/faster-whisper-large-v3-turbo",
+    "turbo": "mobiuslabsgmbh/faster-whisper-large-v3-turbo",
+}
+
+
+def available_models() -> List[str]:
+    """Returns the names of available models."""
+    return list(_MODELS.keys())
+
+
+def hub_cache_dir(cache_dir: Optional[str] = None) -> str:
+    """The Hugging Face cache directory that ``huggingface_hub`` would use:
+    ``cache_dir``, else ``$HF_HUB_CACHE`` (or the older
+    ``$HUGGINGFACE_HUB_CACHE``), else ``$HF_HOME/hub``, else
+    ``$XDG_CACHE_HOME/huggingface/hub``, else ``~/.cache/huggingface/hub``."""
+    if cache_dir is not None:
+        return str(cache_dir)
+    hub = os.environ.get("HF_HUB_CACHE") or os.environ.get("HUGGINGFACE_HUB_CACHE")
+    if hub:
+        return os.path.expanduser(hub)
+    home = os.environ.get("HF_HOME") or os.path.join(
+        os.environ.get("XDG_CACHE_HOME") or os.path.join("~", ".cache"), "huggingface"
+    )
+    return os.path.join(os.path.expanduser(home), "hub")
+
+
+def download_model(
+    size_or_id: str,
+    output_dir: Optional[str] = None,
+    local_files_only: bool = False,
+    cache_dir: Optional[str] = None,
+    revision: Optional[str] = None,
+    use_auth_token: Optional[Union[str, bool]] = None,
+) -> str:
+    """The local directory of a Whisper model, by size name or Hub repo id.
+
+    The port downloads nothing: it resolves the name in the local Hugging
+    Face cache only, where ``huggingface_hub.snapshot_download`` (or an
+    earlier download by faster-whisper) left it:
+    ``models--<org>--<name>/refs/<revision>`` names the snapshot
+    ``snapshots/<hash>/``; a 40-digit ``revision`` names it directly.  An
+    ``output_dir`` that already holds a checkpoint is returned as it is.
+    ``local_files_only`` and ``use_auth_token`` change nothing here.
+    Raises ``FileNotFoundError`` naming the directories searched when the
+    model is not there.
+    """
+    if re.match(r".*/.*", size_or_id):
+        repo_id = size_or_id
+    else:
+        repo_id = _MODELS.get(size_or_id)
+        if repo_id is None:
+            raise ValueError(
+                "Invalid model size '%s', expected one of: %s"
+                % (size_or_id, ", ".join(_MODELS.keys()))
+            )
+    if output_dir is not None and os.path.isdir(output_dir) and any(
+        f == "model.bin" or f.endswith(".safetensors") for f in os.listdir(output_dir)
+    ):
+        return output_dir
+
+    revision = revision or "main"
+    repo = os.path.join(hub_cache_dir(cache_dir), "models--" + repo_id.replace("/", "--"))
+    commit = revision
+    ref = os.path.join(repo, "refs", revision)
+    if not re.fullmatch(r"[0-9a-f]{40}", revision) and os.path.isfile(ref):
+        with open(ref) as f:
+            commit = f.read().strip()
+    snapshot = os.path.join(repo, "snapshots", commit)
+    if os.path.isdir(snapshot):
+        return snapshot
+    raise FileNotFoundError(
+        f"faster_whisper_tpu_torch downloads nothing: model {size_or_id!r} "
+        f"(repo {repo_id}, revision {revision}) is not in the local Hugging Face "
+        f"cache; searched {snapshot} (through {ref}). Pass the path of a local "
+        "model directory (CTranslate2 model.bin or HF safetensors, with "
+        "tokenizer.json) instead."
+    )
 
 
 def get_logger():

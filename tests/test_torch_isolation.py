@@ -1,12 +1,15 @@
 """The port stands alone: it runs where there is no JAX, no ``tokenizers``,
-no ``huggingface_hub``, no PyAV, no ``tqdm`` and no JAX package.  A
-subprocess refuses those imports with a meta-path finder, imports every
-module of ``faster_whisper_tpu_torch`` and ``chip_smoke``, runs a tiny
-transcribe and a tiny batched transcribe of ``docker/jfk.flac`` (decoded
-by the port, VAD on) on the CPU, and checks that the card is the default
-device.  A second test reads the sources for such imports.  scipy, which
-resamples in ``decode_audio``, is imported there lazily and is installed
-wherever the port runs."""
+no ``regex``, no ``huggingface_hub``, no ``safetensors``, no
+``transformers``, no PyAV, no ``tqdm`` and no JAX package.  A subprocess
+refuses those imports with a meta-path finder, imports every module of
+``faster_whisper_tpu_torch`` and ``chip_smoke``, runs a tiny transcribe and
+a tiny batched transcribe of ``docker/jfk.flac`` (decoded by the port's
+native FLAC decoder, built from its own ``csrc/flac_decoder.cpp``, VAD
+on) on the CPU, loads a CTranslate2 and an HF directory written by the
+port with their ``tokenizer.json`` through ``WhisperModel(directory)``,
+and checks that the card is the default device.  A second test reads the
+sources for such imports.  scipy, which resamples in ``decode_audio``, is
+imported there lazily and is installed wherever the port runs."""
 
 import ast
 import os
@@ -26,7 +29,10 @@ import torch._dynamo  # noqa: F401,E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "faster_whisper_tpu_torch")
-BLOCKED = ("jax", "jaxlib", "tokenizers", "huggingface_hub", "av", "tqdm", "faster_whisper_tpu")
+BLOCKED = (
+    "jax", "jaxlib", "tokenizers", "regex", "huggingface_hub", "safetensors", "transformers",
+    "av", "tqdm", "faster_whisper_tpu",
+)
 
 
 def _blocked(name: str) -> bool:
@@ -80,6 +86,38 @@ CHILD = textwrap.dedent(
     segments = list(segments)
     assert segments and 0 < info.duration_after_vad <= info.duration == 11.0
     print("batched segments", len(segments), info.language)
+
+    import os, tempfile
+    from faster_whisper_tpu_torch.ops import _build
+    from faster_whisper_tpu_torch.testing import (
+        tokenizer_json, word_merges, write_ct2_dir, write_hf_dir,
+    )
+
+    flac_lib = str(_build.library_path("flac_decoder.cpp"))
+    maps = open("/proc/self/maps").read()
+    assert flac_lib in maps and "libfwt_flac" not in maps, flac_lib
+    assert _build.CSRC_DIR.parent.name == "faster_whisper_tpu_torch"
+
+    tok = tokenizer_json(512, word_merges([" ask", " not", " what"]))
+    cfg = tiny_test_config(n_vocab=512 + 1609)
+    params = random_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind in ("ct2", "hf"):
+            path = os.path.join(tmp, kind)
+            if kind == "ct2":
+                write_ct2_dir(path, params, cfg, tok, weights="int8_float16")
+            else:
+                write_hf_dir(path, params, cfg, tok)
+            model = WhisperModel(path, device="cpu", compute_type="int8_float32")
+            segments, info = model.transcribe(audio, beam_size=2, max_new_tokens=8,
+                                              initial_prompt=" ask not what")
+            print(kind, "directory segments", len(list(segments)))
+            try:
+                WhisperModel(path)
+            except RuntimeError as e:
+                assert "cuda" in str(e).lower(), e
+            else:
+                raise AssertionError("WhisperModel(directory) ran without a card")
 
     assert not torch.cuda.is_available()
     try:

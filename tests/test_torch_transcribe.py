@@ -144,8 +144,10 @@ def test_fallback_ladder_samples_and_yields_well_formed_segments(models):
     "option,item",
     [("word_timestamps", 7), ("int4", 11), ("checkpoint", 10)],
 )
-def test_options_outside_the_slice_raise(weights, option, item):
-    """Each refusal names its own ROADMAP.md Queue 1 item."""
+def test_options_outside_the_slice_raise(weights, option, item, tmp_path, monkeypatch):
+    """Each refusal names its own ROADMAP.md Queue 1 item.  A model name
+    that is not in the local Hugging Face cache raises that the port
+    downloads nothing."""
     pm = WhisperModel.from_parts(
         params_from_jax(jax.tree.map(np.asarray, weights), device="cpu"),
         tiny_test_config(), build_synthetic_tokenizer(), compute_type="float32", device="cpu",
@@ -161,11 +163,12 @@ def test_options_outside_the_slice_raise(weights, option, item):
                 pm.model.params, tiny_test_config(), build_synthetic_tokenizer(),
                 compute_type="int4", device="cpu",
             )
-    else:  # checkpoints, and containers other than WAV and FLAC
+    else:  # containers other than WAV and FLAC; a checkpoint not on this machine
         with pytest.raises(NotImplementedError, match=match):
             pm.transcribe(io.BytesIO(b"ID3\x04" + bytes(60)))
-        with pytest.raises(NotImplementedError, match=match):
-            WhisperModel("large-v3")
+        monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path))
+        with pytest.raises(FileNotFoundError, match="downloads nothing"):
+            WhisperModel("large-v3", device="cpu")
 
 
 @pytest.fixture(scope="module")
