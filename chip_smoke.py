@@ -63,7 +63,20 @@ Phases, each printing its own line with its seconds:
    ``docker/jfk.flac`` through the native FLAC decoder, bit for bit the
    numpy decoder's samples.  Load, write and decode times and file sizes
    are printed beside the card's name and power limit; the directories
-   are deleted at the end.
+   are deleted at the end;
+10. word timestamps, with the large-v3-turbo weights of phase 7 and the
+    fallback alignment heads (the 40 heads of decoder layers 2-3): request
+    l, ``WhisperModel.transcribe`` at bf16 on 20 s of the tiled speech,
+    ``language="en"``, beam 5, ``word_timestamps=True``,
+    ``hallucination_silence_threshold=2.0``; request m, request i with
+    ``word_timestamps=True``, whose segment tokens and texts and launch
+    counts must equal request i's.  Each alignment pass is timed with CUDA
+    events and must launch no kernel of K1-K4 and run no encode; every
+    DTW matrix goes through the numpy DTW too, whose path must equal the
+    native one's; the words are held to ``check_words``.  Then the small
+    float32 model with words on the card against the CPU, sequential and
+    through the pipeline: equal words and times, probabilities within
+    WORD_PROB_TOL.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as the last line
@@ -99,6 +112,17 @@ VAD_PROB_TOL = 1e-4
 # package's tolerance for the same comparison (tests/test_chunked_mel.py),
 # float32 DFT sums over 400 samples in another order, through log10.
 MEL_ATOL, MEL_RTOL = 3e-4, 1e-3
+# Word probabilities of a small float32 model, card against CPU: means of
+# a few float32 softmax probabilities over the text vocabulary, summed in
+# other orders (the CPU tests hold the port to the JAX package so, too).
+WORD_PROB_TOL = 1e-5
+# The micro vocabulary's specials (ids 257..1864), suppressed where a small
+# random model must decode text for its words to be aligned.
+SMALL_SPECIALS = [-1] + list(range(257, 1865))
+# How far past a chunk's speech its last word may end: the DTW runs over
+# ceil(duration) seconds of encoder frames (< 1 s more), and the reference
+# stretches a last word to at least the median word duration (<= 0.7 s).
+WINDOW_STRETCH_S = 1.7
 JFK_FLAC = "docker/jfk.flac"
 FLUSH_BYTES = 256 * 2**20  # written before each L2-cold call: 5x the 50 MB L2
 
@@ -733,7 +757,8 @@ def run_main_path(speech):
     """Requests a-c at bf16, d-e at int8, f at float32 and g at
     int8_float32, on the same random weights, and the batched requests h
     (bf16) and i (int8) over ``speech``; returns the counts of the six
-    runs."""
+    runs, and for phase 10 the weights, config and vocabulary with request
+    i's segments and seconds."""
     from faster_whisper_tpu_torch.models.config import CONFIGS
     from faster_whisper_tpu_torch.models.load import random_params
     from faster_whisper_tpu_torch.testing import build_synthetic_tokenizer
@@ -759,9 +784,10 @@ def run_main_path(speech):
     print(f"main path counts, bf16 (a-c): {bf16}")
     check_counts(bf16, per_step=("k1", "k4_bf16"), per_encode="k3", cfg=cfg)
     runs = {"bf16": bf16}
-    runs["h"] = run_batched(model, "h: bf16", speech, cfg)
+    runs["h"] = run_batched(model, "h: bf16", speech, cfg)[0]
     check_counts(runs["h"], per_step=("k1", "k4_bf16"), per_encode="k3", cfg=cfg)
 
+    later = dict(params=params, cfg=cfg, tok=tok)
     for key, compute_type, requests, per_step, per_encode, batched in (
         ("int8", "int8", [
             ("d: int8, 45 s, language detection, beam 5, temperature ladder, timestamps",
@@ -785,17 +811,20 @@ def run_main_path(speech):
         check_counts(counts, per_step=per_step, per_encode=per_encode, cfg=cfg)
         runs[key] = counts
         if batched:
-            runs[batched] = run_batched(model, f"{batched}: {compute_type}", speech, cfg)
+            runs[batched], later["i_segments"], later["i_seconds"] = run_batched(
+                model, f"{batched}: {compute_type}", speech, cfg
+            )
             check_counts(runs[batched], per_step=per_step, per_encode=per_encode, cfg=cfg)
-    return runs
+    return runs, later
 
 
-def run_batched(model, name, audio, cfg):
+def run_batched(model, name, audio, cfg, **kwargs):
     """One ``BatchedInferencePipeline.transcribe`` with the VAD on, beam 5,
-    batch 8, checked; returns the launch counts of the run, set to 0 just
-    before it.  The chunks of each batch, its seconds (encode and decode)
-    and the rows it was encoded with (its pow2 bucket) are read off the
-    pipeline's dispatch and the model's encode."""
+    batch 8 (and ``kwargs``), checked; returns the launch counts of the
+    run, set to 0 just before it, its segments and its seconds.  The
+    chunks of each batch, its seconds (encode and decode) and the rows it
+    was encoded with (its pow2 bucket) are read off the pipeline's
+    dispatch and the model's encode."""
     from faster_whisper_tpu_torch.transcribe import BatchedInferencePipeline
 
     pipeline = BatchedInferencePipeline(model)
@@ -818,7 +847,7 @@ def run_batched(model, name, audio, cfg):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         segments, info = pipeline.transcribe(
-            audio, language="en", beam_size=5, batch_size=8, max_new_tokens=128
+            audio, language="en", beam_size=5, batch_size=8, max_new_tokens=128, **kwargs
         )
         segments = list(segments)
         torch.cuda.synchronize()
@@ -840,7 +869,7 @@ def run_batched(model, name, audio, cfg):
           f"upload, VAD, log-mel, segments), {duration / seconds:.2f} audio s per wall s, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on {card_line()}; "
           f"counts {counts}")
-    return counts
+    return counts, segments, seconds
 
 
 def check_segments(segments, info, duration, n_vocab):
@@ -859,6 +888,21 @@ def check_segments(segments, info, duration, n_vocab):
         raise AssertionError(f"duration {info.duration} != {duration}")
 
 
+def small_model_parts():
+    """A small float32 model on the CPU (random weights from seed 5, the
+    synthetic vocabulary): (config, weights, tokenizer)."""
+    from faster_whisper_tpu_torch.models.config import WhisperConfig
+    from faster_whisper_tpu_torch.models.load import random_params
+    from faster_whisper_tpu_torch.testing import build_synthetic_tokenizer, synthetic_vocab_size
+
+    cfg = WhisperConfig(
+        name="smoke-small", n_mels=128, n_audio_state=128, n_audio_head=2,
+        n_audio_layer=2, n_vocab=synthetic_vocab_size(), n_text_state=128,
+        n_text_head=2, n_text_layer=2, multilingual=True,
+    )
+    return cfg, random_params(cfg, seed=5, dtype=torch.float32, device="cpu"), build_synthetic_tokenizer()
+
+
 def check_small_model_against_cpu():
     """The card's path against the same weights on the CPU (plain versions)
     on a small input: at bf16 and at float32 against float32 on the CPU, at
@@ -866,18 +910,9 @@ def check_small_model_against_cpu():
     int8 product): encoder states, and the language probabilities of the
     first decoder step, within the tolerance of the card's type times their
     largest value."""
-    from faster_whisper_tpu_torch.models.config import WhisperConfig
-    from faster_whisper_tpu_torch.models.load import random_params
-    from faster_whisper_tpu_torch.testing import build_synthetic_tokenizer, synthetic_vocab_size
     from faster_whisper_tpu_torch.transcribe import WhisperModel
 
-    cfg = WhisperConfig(
-        name="smoke-small", n_mels=128, n_audio_state=128, n_audio_head=2,
-        n_audio_layer=2, n_vocab=synthetic_vocab_size(), n_text_state=128,
-        n_text_head=2, n_text_layer=2, multilingual=True,
-    )
-    cpu = random_params(cfg, seed=5, dtype=torch.float32, device="cpu")
-    tok = build_synthetic_tokenizer()
+    cfg, cpu, tok = small_model_parts()
     audio = synth_audio(12.0, seed=3)
     # int8 activation quantization turns float32 noise into whole code
     # steps, so the int8 types are held to the bf16 tolerances.
@@ -1009,48 +1044,47 @@ def check_chunked_mel(audio, speech, card):
         raise AssertionError("chunked log-mel on the card disagrees with the host FeatureExtractor")
 
 
-def check_small_pipeline_against_cpu(jfk):
+def check_small_pipeline_against_cpu(jfk, word_timestamps=False):
     """A small float32 model through ``BatchedInferencePipeline`` on the
     card and on the CPU: on ``clip_timestamps`` (three clips at batch 2: a
     full batch and a tail padded with a dummy row), and with the defaults
     (VAD on, language detection, beam 5, batch 8) on ``docker/jfk.flac``,
     which the card's run decodes from the path and the CPU's gets decoded.
-    Equal tokens and times."""
-    from faster_whisper_tpu_torch.models.config import WhisperConfig
-    from faster_whisper_tpu_torch.models.load import random_params
-    from faster_whisper_tpu_torch.testing import build_synthetic_tokenizer, synthetic_vocab_size
+    Equal tokens and times.  With ``word_timestamps`` (phase 10) the
+    specials of the synthetic vocabulary are suppressed, so that the
+    chunks decode text, and the words must be equal too
+    (``check_words_equal``)."""
     from faster_whisper_tpu_torch.transcribe import BatchedInferencePipeline, WhisperModel
 
-    cfg = WhisperConfig(
-        name="smoke-small", n_mels=128, n_audio_state=128, n_audio_head=2,
-        n_audio_layer=2, n_vocab=synthetic_vocab_size(), n_text_state=128,
-        n_text_head=2, n_text_layer=2, multilingual=True,
-    )
-    cpu = random_params(cfg, seed=5, dtype=torch.float32, device="cpu")
-    tok = build_synthetic_tokenizer()
+    cfg, cpu, tok = small_model_parts()
     models = {
         dev: WhisperModel.from_parts(cpu, cfg, tok, compute_type="float32", device=dev)
         for dev in ("cuda", "cpu")
     }
     clips = [{"start": 0.0, "end": 5.0}, {"start": 5.5, "end": 9.0}, {"start": 9.0, "end": 12.0}]
+    words = dict(word_timestamps=True, suppress_tokens=SMALL_SPECIALS) if word_timestamps else {}
     for label, inputs, kwargs in (
         ("3 clips at batch 2", {"cuda": synth_audio(12.0, seed=3), "cpu": synth_audio(12.0, seed=3)},
          dict(clip_timestamps=clips, language="en", batch_size=2)),
         (f"{JFK_FLAC} with the defaults", {"cuda": jfk_path(), "cpu": jfk}, {}),
     ):
-        out = {}
+        out, segs = {}, {}
         for dev, model in models.items():
             segments, info = BatchedInferencePipeline(model).transcribe(
-                inputs[dev], max_new_tokens=32, **kwargs
+                inputs[dev], max_new_tokens=32, **kwargs, **words
             )
-            out[dev] = [(s.start, s.end, s.tokens) for s in segments]
+            segs[dev] = list(segments)
+            out[dev] = [(s.start, s.end, s.tokens) for s in segs[dev]]
         n_tokens = sum(len(t) for _, _, t in out["cpu"])
-        print(f"small float32 model through BatchedInferencePipeline, {label}: "
+        print(f"small float32 model through BatchedInferencePipeline, {label}"
+              f"{', word timestamps' if word_timestamps else ''}: "
               f"{len(out['cuda'])} segments on the card, {len(out['cpu'])} on the CPU, "
               f"{n_tokens} tokens; equal: {out['cuda'] == out['cpu']}")
         if out["cuda"] != out["cpu"]:
             raise AssertionError(f"the batched pipeline's segments on the card differ from the "
                                  f"CPU's ({label})")
+        if word_timestamps:
+            check_words_equal(segs["cuda"], segs["cpu"], f"the pipeline, {label}")
 
 
 # ---------------------------------------------------------------------------
@@ -1207,7 +1241,7 @@ def run_checkpoints(speech, card):
         model, sec = _synced_seconds(lambda: WhisperModel(dirs["int8"], compute_type="int8"))
         print(f"request k: WhisperModel(CT2 int8 directory, compute_type='int8') loaded in "
               f"{sec:.3f} s on {card}")
-        counts["k"] = run_batched(model, "k: CT2 int8 model.bin, int8", speech, cfg)
+        counts["k"] = run_batched(model, "k: CT2 int8 model.bin, int8", speech, cfg)[0]
         check_counts(counts["k"], per_step=("k2", "k4_int8"), per_encode="k3", cfg=cfg)
         del model
         torch.cuda.empty_cache()
@@ -1217,6 +1251,257 @@ def run_checkpoints(speech, card):
         return counts
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: word timestamps
+# ---------------------------------------------------------------------------
+
+
+class AlignmentProbe:
+    """Records the word alignment while a request runs: each alignment
+    pass's device seconds (CUDA events around it) and the launch counts
+    just before and just after it, which must be equal (the pass launches
+    no kernel of K1-K4 and runs no encode); each window's text tokens and
+    its word dicts (with their tokens); and each DTW cost matrix,
+    its path and the native DTW's host milliseconds."""
+
+    def __init__(self, model):
+        from faster_whisper_tpu_torch.models import engine
+
+        self.engine, self.model = engine, model
+        self.events, self.costs, self.native_ms, self.windows = [], [], [], []
+
+    def __enter__(self):
+        engine, model = self.engine, self.model
+        self._pass, self._dtw = engine._align_forward_post, engine.dtw_path
+        alignment_words = model._alignment_words
+
+        def timed_pass(*args, **kwargs):
+            before = read_counts()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self._pass(*args, **kwargs)
+            end.record()
+            self.events.append((start, end))
+            if read_counts() != before:
+                raise AssertionError(f"the alignment pass launched a kernel or an encode: {before} "
+                                     f"-> {read_counts()}")
+            return out
+
+        def timed_dtw(cost):
+            t0 = time.perf_counter()
+            path = self._dtw(cost)
+            self.native_ms.append((time.perf_counter() - t0) * 1e3)
+            self.costs.append((cost.copy(), path))
+            return path
+
+        def recorded_words(tokenizer, results, text_tokens):
+            out = alignment_words(tokenizer, results, text_tokens)
+            self.windows.extend(zip([list(t) for t in text_tokens], out))
+            return out
+
+        engine._align_forward_post, engine.dtw_path = timed_pass, timed_dtw
+        model._alignment_words = recorded_words
+        return self
+
+    def __exit__(self, *exc):
+        self.engine._align_forward_post, self.engine.dtw_path = self._pass, self._dtw
+        del self.model._alignment_words
+
+    def pass_seconds(self):
+        torch.cuda.synchronize()
+        return [start.elapsed_time(end) / 1e3 for start, end in self.events]
+
+    def check_dtw(self, name, card):
+        """The numpy DTW on every recorded matrix: the native path index
+        for index; prints both times per matrix."""
+        from faster_whisper_tpu_torch.dtw import _dtw_path_numpy
+
+        numpy_ms = []
+        for cost, (text_idx, time_idx) in self.costs:
+            t0 = time.perf_counter()
+            want_text, want_time = _dtw_path_numpy(cost)
+            numpy_ms.append((time.perf_counter() - t0) * 1e3)
+            if not (np.array_equal(text_idx, want_text) and np.array_equal(time_idx, want_time)):
+                raise AssertionError(f"request {name}: the native DTW's path differs from the numpy "
+                                     f"DTW's on a {cost.shape} matrix")
+        shapes = sorted({c.shape for c, _ in self.costs})
+        print(f"request {name}: native DTW equals the numpy DTW index for index on all "
+              f"{len(self.costs)} matrices (shapes {shapes[0]}..{shapes[-1]}); per matrix native "
+              f"{np.mean(self.native_ms):.3f} ms, numpy {np.mean(numpy_ms):.3f} ms (mean; max "
+              f"{max(self.native_ms):.3f} and {max(numpy_ms):.3f}) on the host of {card}")
+
+
+def check_words(name, segments, probe, eot, span=None):
+    """The words of a request, held to what the reference's word policy
+    guarantees (the CPU tests hold the port's words equal to the JAX
+    package's, ``tests/test_torch_word_timestamps.py``):
+
+    - every aligned window with text gets words, and each window's words'
+      tokens, concatenated, are its text tokens (punctuation merges move
+      tokens between neighbours, no more).  Which segment of the window
+      holds them follows the reference: each segment takes words until
+      they cover its token count, and a word that runs on past a segment's
+      last token is that segment's alone, so a later segment's share may
+      be used up.  Such segments with text and no words are counted;
+    - every segment has a word list; each word has text, finite times with
+      0 <= start <= end and a probability in [0, 1]; within a segment each
+      word starts where the previous one ended or later;
+    - a segment spans its words: with ``span`` (the VAD restored the
+      times) its start and end are its first and last word's; without, the
+      reference keeps the segment's own start inside its first word and its
+      end inside its last where the words run past them by over 0.5 s;
+    - with ``span`` = (first speech start, last speech end) in seconds,
+      every word lies inside it, the end up to WINDOW_STRETCH_S later.
+
+    Across segments the reference's boundary heuristics may start a
+    segment's first word before the previous segment's; such inversions
+    are counted."""
+    n_words, wordless, inversions, previous_first = 0, 0, 0, None
+    for s in segments:
+        if s.words is None:
+            raise AssertionError(f"request {name}: segment {s.id} has no word list")
+        wordless += any(t < eot for t in s.tokens) and not s.words
+        for a in s.words:
+            if not (a.word and np.isfinite(a.start) and np.isfinite(a.end) and 0.0 <= a.start <= a.end
+                    and 0.0 <= a.probability <= 1.0):
+                raise AssertionError(f"request {name}: malformed word {a} in segment {s.id}")
+        for a, b in zip(s.words, s.words[1:]):
+            if b.start < a.end:
+                raise AssertionError(f"request {name}: words out of order in segment {s.id}: {a}, {b}")
+        if not s.words:
+            continue
+        first, last = s.words[0], s.words[-1]
+        if span is not None:
+            if (s.start, s.end) != (first.start, last.end):
+                raise AssertionError(f"request {name}: segment {s.id} ({s.start}, {s.end}) does not "
+                                     f"span its words ({first.start}, {last.end})")
+            if not (span[0] <= first.start and last.end <= span[1] + WINDOW_STRETCH_S):
+                raise AssertionError(f"request {name}: words of segment {s.id} outside the speech "
+                                     f"{span}: ({first.start}, {last.end})")
+        elif not (first.start <= s.start <= first.end and last.start <= s.end <= last.end):
+            raise AssertionError(f"request {name}: segment {s.id} ({s.start}, {s.end}) outside its "
+                                 f"first and last words {first}, {last}")
+        inversions += previous_first is not None and first.start < previous_first
+        previous_first = first.start
+        n_words += len(s.words)
+    for tokens, words in probe.windows:
+        if tokens and not any(w["word"] for w in words):
+            raise AssertionError(f"request {name}: an aligned window with text has no words")
+        if [t for w in words for t in w["tokens"]] != tokens:
+            raise AssertionError(f"request {name}: the words' tokens are not the window's text tokens")
+    if n_words == 0:
+        raise AssertionError(f"request {name}: no words")
+    print(f"request {name}: {n_words} words in {len(segments)} segments, {len(probe.windows)} windows "
+          f"aligned; {wordless} segments with text and no words (the reference's assignment), "
+          f"{inversions} segments whose first word starts before the previous segment's")
+    return n_words
+
+
+def check_words_equal(card, cpu, label):
+    """The same words on the card and on the CPU: text, start and end
+    equal, probabilities within WORD_PROB_TOL."""
+    got = [[(w.word, w.start, w.end) for w in s.words] for s in card]
+    want = [[(w.word, w.start, w.end) for w in s.words] for s in cpu]
+    diff = max((abs(a.probability - b.probability) for s, r in zip(card, cpu)
+                for a, b in zip(s.words, r.words)), default=0.0)
+    n = sum(len(w) for w in want)
+    print(f"small float32 model, {label}: {n} words; words and times equal on the card and the CPU: "
+          f"{got == want}; max|probability diff| {diff:.3e} (tolerance {WORD_PROB_TOL:.0e})")
+    if got != want or n == 0 or not diff <= WORD_PROB_TOL:
+        raise AssertionError(f"the words of {label} on the card differ from the CPU's")
+
+
+def check_small_words_against_cpu():
+    """The small float32 model of phase 8 through ``WhisperModel.transcribe``
+    with word timestamps on the card and on the CPU (beam 5, temperature
+    0, the hallucination-silence skipping on): equal segments and words."""
+    from faster_whisper_tpu_torch.transcribe import WhisperModel
+
+    cfg, cpu, tok = small_model_parts()
+    audio = synth_audio(20.0, seed=3)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = WhisperModel.from_parts(cpu, cfg, tok, compute_type="float32", device=dev)
+        segments, _ = model.transcribe(
+            audio, language="en", beam_size=5, temperature=0.0, max_new_tokens=32,
+            word_timestamps=True, hallucination_silence_threshold=1.0, suppress_tokens=SMALL_SPECIALS,
+        )
+        out[dev] = list(segments)
+    keys = {dev: [(s.seek, s.start, s.end, s.tokens) for s in segs] for dev, segs in out.items()}
+    if keys["cuda"] != keys["cpu"]:
+        raise AssertionError("the small model's segments with word timestamps differ on the card")
+    check_words_equal(out["cuda"], out["cpu"], "WhisperModel.transcribe with word timestamps")
+
+
+def run_word_timestamps(later, jfk, speech, speech_chunks, i_counts, card):
+    """Phase 10: request l (``WhisperModel.transcribe`` at bf16 with word
+    timestamps and the hallucination-silence skipping on 20 s of the tiled
+    speech) and request m (request i with word timestamps), each checked
+    by ``check_words`` with its counts set to 0 just before and read just
+    after; then the small float32 model with words on the card against the
+    CPU.  Returns the counts of l and m."""
+    from faster_whisper_tpu_torch.transcribe import WhisperModel
+
+    cfg, tok = later["cfg"], later["tok"]
+    eot = tok.token_to_id("<|endoftext|>")
+    model = WhisperModel.from_parts(later["params"], cfg, tok)
+    heads = model.model._alignment_heads()
+    print(f"alignment heads of large-v3-turbo without alignment_heads in its config: the fallback, "
+          f"{len(heads)} heads of decoder layers {sorted({h[0] for h in heads})}")
+    clip = speech[: 20 * 16000]
+    counts = {}
+    with AlignmentProbe(model) as probe:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        segments, info = model.transcribe(clip, language="en", beam_size=5, word_timestamps=True,
+                                          hallucination_silence_threshold=2.0)
+        segments = list(segments)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts["l"] = read_counts()
+    check_segments(segments, info, len(clip) / 16000, cfg.n_vocab)
+    check_words("l", segments, probe, eot)
+    passes = probe.pass_seconds()
+    print(f"request l: bf16, 20 s of {JFK_FLAC} tiled, en, beam 5, word timestamps, "
+          f"hallucination_silence_threshold=2.0: {len(segments)} segments, "
+          f"{sum(len(s.tokens) for s in segments)} tokens, {seconds:.3f} s, {counts['l']['steps']} "
+          f"decode steps, {len(passes)} windows aligned, alignment pass {np.mean(passes):.4f} s per "
+          f"window (device, max {max(passes):.4f}), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+    probe.check_dtw("l", card)
+    print(f"main path counts, l: {counts['l']}")
+    check_counts(counts["l"], per_step=("k1", "k4_bf16"), per_encode="k3", cfg=cfg)
+    del model
+
+    model = WhisperModel.from_parts(later["params"], cfg, tok, compute_type="int8")
+    with AlignmentProbe(model) as probe:
+        counts["m"], segments, seconds = run_batched(
+            model, "m: int8, word timestamps", speech, cfg, word_timestamps=True
+        )
+    span = (speech_chunks[0]["start"] / 16000, speech_chunks[-1]["end"] / 16000)
+    check_words("m", segments, probe, eot, span=span)
+    passes = probe.pass_seconds()
+    print(f"request m: {len(passes)} batches aligned, alignment pass {np.mean(passes):.4f} s per "
+          f"batch (device; {', '.join(f'{p:.4f}' for p in passes)}); {seconds:.3f} s against request "
+          f"i's {later['i_seconds']:.3f} s without words on {card}")
+    probe.check_dtw("m", card)
+    want = [(s.seek, s.text, s.tokens) for s in later["i_segments"]]
+    got = [(s.seek, s.text, s.tokens) for s in segments]
+    print(f"request m against request i: equal segment tokens and texts: {got == want}; equal "
+          f"launch counts: {counts['m'] == i_counts}")
+    if got != want:
+        raise AssertionError("request m's segment tokens or texts differ from request i's")
+    if counts["m"] != i_counts:
+        raise AssertionError(f"request m's launch counts {counts['m']} differ from i's {i_counts}")
+    del model
+    torch.cuda.empty_cache()
+
+    check_small_words_against_cpu()
+    check_small_pipeline_against_cpu(jfk, word_timestamps=True)
+    return counts
 
 
 def _fmt(x):
@@ -1298,7 +1583,7 @@ def main():
     phase("chunked mel", t0)
 
     t0 = time.perf_counter()
-    runs = run_main_path(speech)
+    runs, later = run_main_path(speech)
     phase("main path", t0)
     t0 = time.perf_counter()
     check_small_model_against_cpu()
@@ -1307,6 +1592,10 @@ def main():
     t0 = time.perf_counter()
     runs.update(run_checkpoints(speech, card))
     phase("checkpoints", t0)
+    t0 = time.perf_counter()
+    runs.update(run_word_timestamps(later, jfk, speech, pipeline_chunks, runs["i"], card))
+    del later
+    phase("word timestamps", t0)
 
     def entry(name, label, source, replaces, launches):
         t = times[label]
@@ -1315,28 +1604,29 @@ def main():
                     **{k: t[k] for k in ("ms", "cold_ms", "call_ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")})
 
-    bf16, int8, fp32, int8_f32, req_h, req_i, req_j, req_k = (
-        runs[k] for k in ("bf16", "int8", "f32", "int8_f32", "h", "i", "j", "k")
+    bf16, int8, fp32, int8_f32, req_h, req_i, req_j, req_k, req_l, req_m = (
+        runs[k] for k in ("bf16", "int8", "f32", "int8_f32", "h", "i", "j", "k", "l", "m")
     )
     kernels = [
         entry("beam_attend_append bf16 (K1)", "K1", "beam_attention.cu", K1_REPLACES,
-              bf16["k1"] + req_h["k1"] + req_j["k1"]),
+              bf16["k1"] + req_h["k1"] + req_j["k1"] + req_l["k1"]),
         entry("beam_attend_append f32 (K1)", "K1 f32", "beam_attention.cu", K1_REPLACES,
               fp32["k1_f32"]),
         entry("beam_attend_append int8 (K2)", "K2", "beam_attention.cu", K2_REPLACES,
-              int8["k2"] + req_i["k2"] + req_k["k2"]),
+              int8["k2"] + req_i["k2"] + req_k["k2"] + req_m["k2"]),
         entry("beam_attend_append int8, f32 activations (K2)", "K2 f32", "beam_attention.cu",
               K2_REPLACES, int8_f32["k2_f32"]),
         entry("mha_flash bf16 (K3)", "K3", "flash_attention.cu", K3_REPLACES,
-              bf16["k3"] + int8["k3"] + req_h["k3"] + req_i["k3"] + req_j["k3"] + req_k["k3"]),
+              bf16["k3"] + int8["k3"] + req_h["k3"] + req_i["k3"] + req_j["k3"] + req_k["k3"]
+              + req_l["k3"] + req_m["k3"]),
         entry("mha_flash f32 (K3)", "K3 f32", "flash_attention.cu", K3_REPLACES,
               fp32["k3_f32"] + int8_f32["k3_f32"]),
         entry("cross_attend bf16 (K4a)", "K4 bf16", "cross_attention.cu", K4A_REPLACES,
-              bf16["k4_bf16"] + req_h["k4_bf16"] + req_j["k4_bf16"]),
+              bf16["k4_bf16"] + req_h["k4_bf16"] + req_j["k4_bf16"] + req_l["k4_bf16"]),
         entry("cross_attend f32 (K4a)", "K4 f32", "cross_attention.cu", K4A_REPLACES,
               fp32["k4_f32"]),
         entry("cross_attend int8 (K4b, K4c)", "K4 int8", "cross_attention.cu", K4B_REPLACES,
-              int8["k4_int8"] + req_i["k4_int8"] + req_k["k4_int8"]),
+              int8["k4_int8"] + req_i["k4_int8"] + req_k["k4_int8"] + req_m["k4_int8"]),
         entry("cross_attend int8, f32 activations (K4b, K4c)", "K4 int8 f32", "cross_attention.cu",
               K4B_REPLACES, int8_f32["k4_int8_f32"]),
     ]

@@ -4,8 +4,8 @@ Each source under ``csrc/`` has a plain C interface and becomes one shared
 library under ``build/torch_kernels/`` at the root of the checkout, named
 after a hash of the source and the compiler flags: an unchanged source is
 built once and then reused.  The CUDA kernels (``.cu``) are built with
-``nvcc``; the host libraries (``.cpp``, the FLAC decoder) with the host
-``g++``.  The build runs at first use, or for every source at once (one
+``nvcc``; the host libraries (``.cpp``: the FLAC decoder and the DTW of
+word timestamps) with the host ``g++``.  The build runs at first use, or for every source at once (one
 compiler per source, started together) through ``build()``.  A failed
 build raises; nothing falls back to a plain version.
 """
@@ -30,10 +30,10 @@ NVCC_FLAGS = (
 )
 HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
 
-# source file -> {C function: argtypes}; every function returns a
-# cudaError_t as an int, 0 on success.
+# source file -> {C function: argtypes}; a kernel launcher returns a
+# cudaError_t as an int, 0 on success; ``_RESTYPES`` names the others.
 SIGNATURES = {
     "beam_attention.cu": {
         "fwt_beam_attend_append_bf16": [_P] * 11 + [_I] * 7 + [_F, _P],
@@ -59,8 +59,10 @@ SIGNATURES = {
         ],
         "fwt_flac_free": [ctypes.POINTER(ctypes.c_int32)],
     },
+    # returns the path's length
+    "dtw.cpp": {"fwt_dtw": [_P, _L, _L, _P, _P]},
 }
-_VOID = {"fwt_flac_free"}
+_RESTYPES = {"fwt_flac_free": None, "fwt_dtw": _L}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -143,7 +145,7 @@ def load(source: str) -> ctypes.CDLL:
             for name, argtypes in SIGNATURES[source].items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = None if name in _VOID else ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _libs[source] = lib
         return lib
 

@@ -6,9 +6,11 @@ port needs no ``tokenizers`` package.  It wraps any object with
 ``decode(ids)`` -- a ``tokenizers.Tokenizer`` or the pure-Python synthetic
 tokenizer of ``testing.py`` -- and implements the Whisper special-token
 layout: task/language tokens, ``timestamp_begin = no_timestamps + 1``,
-decode filtering of special ids, 0.02 s timestamp steps and the non-speech
-suppress set.  Word splitting (word timestamps) is not ported yet.
+decode filtering of special ids, 0.02 s timestamp steps, the non-speech
+suppress set, and the unicode/space word splitting of word timestamps.
 """
+
+import string
 
 from functools import cached_property
 from typing import List, Optional, Tuple
@@ -24,6 +26,10 @@ _LANGUAGE_CODES = tuple(
         "sn so sq sr su sv sw ta te tg th tk tl tr tt uk ur uz vi yi yo zh yue"
     ).split()
 )
+
+# Languages written without spaces: their words split at unicode
+# boundaries instead of spaces.
+_NO_SPACE_LANGUAGES = frozenset({"zh", "ja", "th", "lo", "my", "yue"})
 
 
 class Tokenizer:
@@ -114,6 +120,26 @@ class Tokenizer:
         # Specials (eot and above) are stripped before decoding.
         return self.tokenizer.decode([t for t in tokens if t < self.eot])
 
+    def decode_with_timestamps(self, tokens: List[int]) -> str:
+        """Decode, rendering timestamp tokens as <|t.tt|> markers (0.02 s
+        per step); the base tokenizer drops the other specials."""
+        parts: List[str] = []
+        run: List[int] = []
+
+        def flush():
+            if run:
+                parts.append(self.tokenizer.decode(run))
+                run.clear()
+
+        for token in tokens:
+            if token >= self.timestamp_begin:
+                flush()
+                parts.append(f"<|{(token - self.timestamp_begin) * 0.02:.2f}|>")
+            else:
+                run.append(token)
+        flush()
+        return "".join(parts)
+
     @cached_property
     def non_speech_tokens(self) -> Tuple[int]:
         """Token ids to suppress so the model avoids speaker tags and other
@@ -138,3 +164,61 @@ class Tokenizer:
                     result.add(tokens[0])
 
         return tuple(sorted(result))
+
+    def split_to_word_tokens(self, tokens: List[int]) -> Tuple[List[str], List[List[int]]]:
+        if self.language_code in _NO_SPACE_LANGUAGES:
+            return self.split_tokens_on_unicode(tokens)
+        return self.split_tokens_on_spaces(tokens)
+
+    def split_tokens_on_unicode(self, tokens: List[int]) -> Tuple[List[str], List[List[int]]]:
+        """Split at positions where the accumulated tokens decode to valid
+        unicode: no dangling U+FFFD, unless the full decode holds one at
+        the same offset."""
+        decoded_full = self.decode_with_timestamps(tokens)
+        replacement_char = "\ufffd"
+
+        words: List[str] = []
+        word_tokens: List[List[int]] = []
+        current_tokens: List[int] = []
+        unicode_offset = 0
+
+        for token in tokens:
+            current_tokens.append(token)
+            decoded = self.decode_with_timestamps(current_tokens)
+
+            rc_index = decoded.find(replacement_char)
+            boundary_ok = rc_index == -1 or (
+                rc_index + unicode_offset < len(decoded_full)
+                and decoded_full[rc_index + unicode_offset] == replacement_char
+            )
+            if boundary_ok:
+                words.append(decoded)
+                word_tokens.append(current_tokens)
+                current_tokens = []
+                unicode_offset += len(decoded)
+
+        return words, word_tokens
+
+    def split_tokens_on_spaces(self, tokens: List[int]) -> Tuple[List[str], List[List[int]]]:
+        """Merge the unicode-split subwords into space-delimited words,
+        keeping specials and punctuation as entries of their own."""
+        subwords, subword_tokens_list = self.split_tokens_on_unicode(tokens)
+        words: List[str] = []
+        word_tokens: List[List[int]] = []
+
+        for subword, subword_tokens in zip(subwords, subword_tokens_list):
+            is_special = subword_tokens[0] >= self.eot
+            starts_new_word = (
+                is_special
+                or subword.startswith(" ")
+                or subword.strip() in string.punctuation
+                or not words
+            )
+            if starts_new_word:
+                words.append(subword)
+                word_tokens.append(subword_tokens)
+            else:
+                words[-1] += subword
+                word_tokens[-1].extend(subword_tokens)
+
+        return words, word_tokens

@@ -13,6 +13,11 @@ Counterpart of ``faster_whisper_tpu/transcribe.py``:
   are encoded and beam-decoded together.
 - ``vad_filter`` on both, ``restore_speech_timestamps``, and
   ``decode_audio`` for a path or file object (WAV and FLAC).
+- ``word_timestamps`` on both: a teacher-forced alignment pass over each
+  window's or batch's text (``models/engine.py::WhisperEngine.align``),
+  the DTW on the host, the word splitting of ``tokenizer.py``, and the
+  reference's word heuristics, with the hallucination-silence skipping of
+  the sequential path.
 
 Each encode runs kernel K3 on the card; each decode step K1 and K4 (K2 and
 K4's int8 form on the int8 compute types, with W8A8 int8 weights).
@@ -25,11 +30,11 @@ Hugging Face cache only (``utils.py::download_model``): the port
 downloads nothing.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: containers other than WAV and FLAC, word timestamps, the
-int4 compute type, the continuous-batching scheduler and more than one
-device.
+ROADMAP item: containers other than WAV and FLAC, the int4 compute type,
+the continuous-batching scheduler and more than one device.
 """
 
+import itertools
 import json
 import logging
 import os
@@ -52,6 +57,7 @@ from faster_whisper_tpu_torch.utils import (
     NOT_PORTED,
     download_model,
     format_timestamp,
+    get_end,
     get_logger,
     resolve_device,
 )
@@ -61,6 +67,14 @@ from faster_whisper_tpu_torch.vad import (
     collect_chunks,
     get_speech_timestamps,
 )
+
+
+@dataclass
+class Word:
+    start: float
+    end: float
+    word: str
+    probability: float
 
 
 @dataclass
@@ -74,7 +88,7 @@ class Segment:
     avg_logprob: float
     compression_ratio: float
     no_speech_prob: float
-    words: Optional[list]
+    words: Optional[List[Word]]
     temperature: Optional[float]
 
 
@@ -118,6 +132,8 @@ class TranscriptionInfo:
     transcription_options: TranscriptionOptions
     vad_options: Optional[VadOptions]
 
+
+_PUNCTUATION = "\"'“¿([{-\"'.。,，!！?？:：”)]}、"
 
 # compute_type -> activation dtype (bf16 where GPUs' CT2 uses fp16); the
 # int8 types add W8A8 int8 weights and int8 KV caches (ops/quant.py)
@@ -297,6 +313,9 @@ class WhisperModel:
         self.frames_per_second = (
             self.feature_extractor.sampling_rate // self.feature_extractor.hop_length
         )
+        self.tokens_per_second = self.feature_extractor.sampling_rate // (
+            self.feature_extractor.hop_length * self.input_stride
+        )
         self.time_precision = 0.02
         self.max_length = 448
 
@@ -381,10 +400,6 @@ class WhisperModel:
         ``WhisperModel.transcribe``; returns (lazy generator over Segment,
         TranscriptionInfo).  ``log_progress`` logs each window at INFO.
         With ``vad_filter`` the Silero VAD runs on the model's device."""
-        if word_timestamps:
-            raise NotImplementedError(
-                "word_timestamps=True: cross-attention alignment is " + NOT_PORTED.format(7)
-            )
         sampling_rate = self.feature_extractor.sampling_rate
 
         if multilingual and not self.model.is_multilingual:
@@ -593,8 +608,11 @@ class WhisperModel:
         log_progress: bool = False,
     ) -> Iterable[Segment]:
         """The sequential seek loop: one encode and one fallback ladder per
-        30 s window, yielding segments as they are decoded."""
+        30 s window, yielding segments as they are decoded.  With word
+        timestamps each window is aligned after its decode, and the seek
+        follows the last word's end."""
         content_frames = features.shape[-1] - 1
+        content_duration = float(content_frames * self.feature_extractor.time_per_frame)
         nb_max_frames = self.feature_extractor.nb_max_frames
 
         if isinstance(options.clip_timestamps, str):
@@ -627,6 +645,7 @@ class WhisperModel:
         features_padded = torch.as_tensor(
             np.pad(features, ((0, 0), (0, nb_max_frames))), device=self.device
         )
+        last_speech_timestamp = 0.0
 
         while clip_idx < len(seek_clips):
             seek_clip_start, seek_clip_end = seek_clips[clip_idx]
@@ -641,6 +660,7 @@ class WhisperModel:
                 continue
 
             time_offset = seek * self.feature_extractor.time_per_frame
+            window_end_time = float((seek + nb_max_frames) * self.feature_extractor.time_per_frame)
             segment_size = min(nb_max_frames, content_frames - seek, seek_clip_end - seek)
             segment_duration = segment_size * self.feature_extractor.time_per_frame
             segment = extract_window(features_padded, seek, segment_size, nb_max_frames)
@@ -697,7 +717,7 @@ class WhisperModel:
             tokens = result.sequences_ids[0]
             previous_seek = seek
 
-            current_segments, seek, _single_ending = self._split_segments_by_timestamps(
+            current_segments, seek, single_timestamp_ending = self._split_segments_by_timestamps(
                 tokenizer=tokenizer,
                 tokens=tokens,
                 time_offset=time_offset,
@@ -705,6 +725,69 @@ class WhisperModel:
                 segment_duration=segment_duration,
                 seek=seek,
             )
+
+            if options.word_timestamps:
+                self.add_word_timestamps(
+                    [current_segments],
+                    tokenizer,
+                    encoder_output,
+                    segment_size,
+                    options.prepend_punctuations,
+                    options.append_punctuations,
+                    last_speech_timestamp=last_speech_timestamp,
+                )
+                if not single_timestamp_ending:
+                    last_word_end = get_end(current_segments)
+                    if last_word_end is not None and last_word_end > time_offset:
+                        seek = round(last_word_end * self.frames_per_second)
+
+                if options.hallucination_silence_threshold is not None:
+                    threshold = options.hallucination_silence_threshold
+                    # a window that opens with an anomalous segment after a
+                    # long gap is decoded again from that segment's start
+                    first_segment = _next_words_segment(current_segments)
+                    if first_segment is not None and _is_segment_anomaly(first_segment):
+                        gap = first_segment["start"] - time_offset
+                        if gap > threshold:
+                            seek = previous_seek + round(gap * self.frames_per_second)
+                            continue
+
+                    # an anomalous segment with silence on both sides ends
+                    # the window there
+                    hal_last_end = last_speech_timestamp
+                    for si in range(len(current_segments)):
+                        segment_d = current_segments[si]
+                        if not segment_d["words"]:
+                            continue
+                        if _is_segment_anomaly(segment_d):
+                            next_segment = _next_words_segment(current_segments[si + 1 :])
+                            if next_segment is not None:
+                                hal_next_start = next_segment["words"][0]["start"]
+                            else:
+                                hal_next_start = time_offset + segment_duration
+                            silence_before = (
+                                segment_d["start"] - hal_last_end > threshold
+                                or segment_d["start"] < threshold
+                                or segment_d["start"] - time_offset < 2.0
+                            )
+                            silence_after = (
+                                hal_next_start - segment_d["end"] > threshold
+                                or _is_segment_anomaly(next_segment)
+                                or window_end_time - segment_d["end"] < 2.0
+                            )
+                            if silence_before and silence_after:
+                                seek = round(
+                                    max(time_offset + 1, segment_d["start"]) * self.frames_per_second
+                                )
+                                if content_duration - segment_d["end"] < threshold:
+                                    seek = content_frames
+                                current_segments[si:] = []
+                                break
+                        hal_last_end = segment_d["end"]
+
+                last_word_end = get_end(current_segments)
+                if last_word_end is not None:
+                    last_speech_timestamp = last_word_end
 
             for segment_d in current_segments:
                 tokens = segment_d["tokens"]
@@ -727,7 +810,11 @@ class WhisperModel:
                     avg_logprob=avg_logprob,
                     compression_ratio=compression_ratio,
                     no_speech_prob=result.no_speech_prob,
-                    words=None,
+                    words=(
+                        [Word(**word) for word in segment_d["words"]]
+                        if options.word_timestamps
+                        else None
+                    ),
                 )
 
             if (
@@ -920,6 +1007,220 @@ class WhisperModel:
 
         return prompt
 
+    # ------------------------------------------------------------------
+    # Word timestamps
+    # ------------------------------------------------------------------
+
+    def add_word_timestamps(
+        self,
+        segments: List[List[dict]],
+        tokenizer: Tokenizer,
+        encoder_output,
+        num_frames,
+        prepend_punctuations: str,
+        append_punctuations: str,
+        last_speech_timestamp: float,
+    ) -> Optional[float]:
+        """Give each segment dict of each window (one list per row of
+        ``encoder_output``) its ``words``; returns the last speech time."""
+        state = self.add_word_timestamps_dispatch(segments, tokenizer, encoder_output, num_frames)
+        if state is None:
+            return None
+        return self.add_word_timestamps_collect(
+            state, segments, prepend_punctuations, append_punctuations, last_speech_timestamp
+        )
+
+    def add_word_timestamps_dispatch(
+        self,
+        segments: List[List[dict]],
+        tokenizer: Tokenizer,
+        encoder_output,
+        num_frames,
+    ):
+        """Queue the alignment of every window's text tokens on the device
+        and return the state that ``add_word_timestamps_collect`` takes:
+        the batched pipeline queues its next batch in between."""
+        if len(segments) == 0:
+            return None
+
+        text_tokens = []
+        text_tokens_per_segment = []
+        for segment in segments:
+            segment_tokens = [
+                [token for token in subsegment["tokens"] if token < tokenizer.eot]
+                for subsegment in segment
+            ]
+            text_tokens.append(list(itertools.chain.from_iterable(segment_tokens)))
+            text_tokens_per_segment.append(segment_tokens)
+
+        pending = (
+            self.model.align_dispatch(
+                encoder_output, tokenizer.sot_sequence, text_tokens, num_frames,
+                median_filter_width=7,
+            )
+            if len(text_tokens)
+            else None
+        )
+        return (pending, tokenizer, text_tokens, text_tokens_per_segment)
+
+    def add_word_timestamps_collect(
+        self,
+        state,
+        segments: List[List[dict]],
+        prepend_punctuations: str,
+        append_punctuations: str,
+        last_speech_timestamp: float,
+    ) -> float:
+        """Wait for the alignment, split it into words, and apply the
+        reference's heuristics: overlong words truncated at sentence
+        marks, punctuation merged into its neighbours, the words handed
+        to each segment until they cover its tokens, and the boundary
+        words of each segment held to its times."""
+        pending, tokenizer, text_tokens, text_tokens_per_segment = state
+        alignments = (
+            self._alignment_words(tokenizer, self.model.align_collect(pending), text_tokens)
+            if pending is not None
+            else []
+        )
+        median_max_durations = []
+        for alignment in alignments:
+            word_durations = np.array([word["end"] - word["start"] for word in alignment])
+            word_durations = word_durations[word_durations.nonzero()]
+            median_duration = np.median(word_durations) if len(word_durations) > 0 else 0.0
+            median_duration = min(0.7, float(median_duration))
+            max_duration = median_duration * 2
+
+            # truncate overlong words at sentence boundaries
+            if len(word_durations) > 0:
+                sentence_end_marks = ".。!！?？"
+                for i in range(1, len(alignment)):
+                    if alignment[i]["end"] - alignment[i]["start"] > max_duration:
+                        if alignment[i]["word"] in sentence_end_marks:
+                            alignment[i]["end"] = alignment[i]["start"] + max_duration
+                        elif alignment[i - 1]["word"] in sentence_end_marks:
+                            alignment[i]["start"] = alignment[i]["end"] - max_duration
+
+            merge_punctuations(alignment, prepend_punctuations, append_punctuations)
+            median_max_durations.append((median_duration, max_duration))
+
+        for segment_idx, segment in enumerate(segments):
+            word_index = 0
+            time_offset = segment[0]["seek"] / self.frames_per_second
+            median_duration, max_duration = median_max_durations[segment_idx]
+            for subsegment_idx, subsegment in enumerate(segment):
+                saved_tokens = 0
+                words = []
+
+                while word_index < len(alignments[segment_idx]) and saved_tokens < len(
+                    text_tokens_per_segment[segment_idx][subsegment_idx]
+                ):
+                    timing = alignments[segment_idx][word_index]
+
+                    if timing["word"]:
+                        words.append(
+                            dict(
+                                word=timing["word"],
+                                start=round(time_offset + timing["start"], 2),
+                                end=round(time_offset + timing["end"], 2),
+                                probability=timing["probability"],
+                            )
+                        )
+
+                    saved_tokens += len(timing["tokens"])
+                    word_index += 1
+
+                if len(words) > 0:
+                    # the first and second word after a pause must not be overlong
+                    if words[0]["end"] - last_speech_timestamp > median_duration * 4 and (
+                        words[0]["end"] - words[0]["start"] > max_duration
+                        or (len(words) > 1 and words[1]["end"] - words[0]["start"] > max_duration * 2)
+                    ):
+                        if len(words) > 1 and words[1]["end"] - words[1]["start"] > max_duration:
+                            boundary = max(words[1]["end"] / 2, words[1]["end"] - max_duration)
+                            words[0]["end"] = words[1]["start"] = boundary
+                        words[0]["start"] = max(0, words[0]["end"] - max_duration)
+
+                    # prefer the segment-level start/end when words are overlong
+                    if (
+                        subsegment["start"] < words[0]["end"]
+                        and subsegment["start"] - 0.5 > words[0]["start"]
+                    ):
+                        words[0]["start"] = max(
+                            0, min(words[0]["end"] - median_duration, subsegment["start"])
+                        )
+                    else:
+                        subsegment["start"] = words[0]["start"]
+
+                    if (
+                        subsegment["end"] > words[-1]["start"]
+                        and subsegment["end"] + 0.5 < words[-1]["end"]
+                    ):
+                        words[-1]["end"] = max(words[-1]["start"] + median_duration, subsegment["end"])
+                    else:
+                        subsegment["end"] = words[-1]["end"]
+
+                    last_speech_timestamp = subsegment["end"]
+                segments[segment_idx][subsegment_idx]["words"] = words
+        return last_speech_timestamp
+
+    def find_alignment(
+        self,
+        tokenizer: Tokenizer,
+        text_tokens: List[List[int]],
+        encoder_output,
+        num_frames,
+        median_filter_width: int = 7,
+    ) -> List[List[dict]]:
+        """Word dicts (word, tokens, start, end, probability) of each row's
+        text tokens, times relative to the window."""
+        if len(text_tokens) == 0:
+            return []
+        results = self.model.align(
+            encoder_output, tokenizer.sot_sequence, text_tokens, num_frames,
+            median_filter_width=median_filter_width,
+        )
+        return self._alignment_words(tokenizer, results, text_tokens)
+
+    def _alignment_words(self, tokenizer: Tokenizer, results, text_tokens: List[List[int]]) -> List[List[dict]]:
+        """Alignment results -> per-row word dicts: each word starts at the
+        time of its first token's jump in the DTW path and ends at the
+        next word's; its probability is the mean of its tokens'."""
+        return_list = []
+        for result, text_token in zip(results, text_tokens):
+            text_token_probs = result.text_token_probs
+            alignments = result.alignments
+            text_indices = np.array([pair[0] for pair in alignments])
+            time_indices = np.array([pair[1] for pair in alignments])
+
+            words, word_tokens = tokenizer.split_to_word_tokens(text_token + [tokenizer.eot])
+            if len(word_tokens) <= 1:
+                # eot only: nothing to align
+                return_list.append([])
+                continue
+            word_boundaries = np.pad(np.cumsum([len(t) for t in word_tokens[:-1]]), (1, 0))
+            if len(word_boundaries) <= 1:
+                return_list.append([])
+                continue
+
+            jumps = np.pad(np.diff(text_indices), (1, 0), constant_values=1).astype(bool)
+            jump_times = time_indices[jumps] / self.tokens_per_second
+            start_times = jump_times[word_boundaries[:-1]]
+            end_times = jump_times[word_boundaries[1:]]
+            word_probabilities = [
+                np.mean(text_token_probs[i:j])
+                for i, j in zip(word_boundaries[:-1], word_boundaries[1:])
+            ]
+
+            return_list.append(
+                [
+                    dict(word=word, tokens=tokens, start=start, end=end, probability=probability)
+                    for word, tokens, start, end, probability in zip(
+                        words, word_tokens, start_times, end_times, word_probabilities
+                    )
+                ]
+            )
+        return return_list
+
     def detect_language(
         self,
         audio: Optional[np.ndarray] = None,
@@ -994,18 +1295,25 @@ class BatchedInferencePipeline:
         self._batch_bucket = None
 
     def forward(self, features, tokenizer, chunks_metadata, options):
-        _, pending = self._dispatch_segment_batch(features, tokenizer, options)
-        return self._forward_collect(pending, tokenizer, chunks_metadata, options)
+        encoder_output, pending = self._dispatch_segment_batch(features, tokenizer, options)
+        return self._forward_collect(encoder_output, pending, tokenizer, chunks_metadata, options)
 
-    def _forward_collect(self, pending, tokenizer, chunks_metadata, options):
-        """Split each chunk's tokens into segments.  The pow2 bucket's dummy
-        rows have no metadata, and the zip drops them."""
+    def _forward_collect(
+        self, encoder_output, pending, tokenizer, chunks_metadata, options, dispatch_hook=None
+    ):
+        """Split each chunk's tokens into segments, and with word timestamps
+        align them.  The pow2 bucket's dummy rows have no metadata: the zip
+        drops their outputs, and their encoder rows are sliced off.
+        ``dispatch_hook`` queues the next batch: after the alignment's
+        dispatch, before its collect."""
         outputs = self._collect_segment_batch(pending, options)
 
         segmented_outputs = []
+        segment_sizes = []
         for chunk_metadata, output in zip(chunks_metadata, outputs):
             duration = chunk_metadata["duration"]
             segment_size = int(ceil(duration) * self.model.frames_per_second)
+            segment_sizes.append(segment_size)
             subsegments, _seek, _single_timestamp_ending = self.model._split_segments_by_timestamps(
                 tokenizer=tokenizer,
                 tokens=output["tokens"],
@@ -1031,6 +1339,24 @@ class BatchedInferencePipeline:
                     for subsegment in subsegments
                 ]
             )
+
+        if options.word_timestamps:
+            state = self.model.add_word_timestamps_dispatch(
+                segmented_outputs, tokenizer, encoder_output[: len(segment_sizes)], segment_sizes
+            )
+            if dispatch_hook is not None:
+                dispatch_hook()
+            if state is not None:
+                self.last_speech_timestamp = self.model.add_word_timestamps_collect(
+                    state,
+                    segmented_outputs,
+                    options.prepend_punctuations,
+                    options.append_punctuations,
+                    self.last_speech_timestamp,
+                )
+        elif dispatch_hook is not None:
+            dispatch_hook()
+
         return segmented_outputs
 
     def generate_segment_batched(
@@ -1185,10 +1511,6 @@ class BatchedInferencePipeline:
         max_initial_timestamp=0) match :518-553.  ``clip_timestamps`` is a
         list of {"start", "end"} dicts in seconds.  ``log_progress`` logs
         each batch at INFO."""
-        if word_timestamps:
-            raise NotImplementedError(
-                "word_timestamps=True: cross-attention alignment is " + NOT_PORTED.format(7)
-            )
         model = self.model
         sampling_rate = model.feature_extractor.sampling_rate
 
@@ -1409,8 +1731,10 @@ class BatchedInferencePipeline:
         )
 
         # The JAX package's order: the next batch is dispatched before this
-        # one is collected and again after, with at most two in flight.
-        in_flight = deque()  # (start, pending)
+        # one is collected and again from inside the collect (after the
+        # alignment's dispatch, with word timestamps), with at most two in
+        # flight.  Each keeps its encoder states for the alignment.
+        in_flight = deque()  # (start, encoder_output, pending)
         next_idx = 0
 
         def dispatch_next():
@@ -1418,20 +1742,20 @@ class BatchedInferencePipeline:
             if len(in_flight) < 2 and next_idx < len(starts):
                 start = starts[next_idx]
                 next_idx += 1
-                _, pending = self._dispatch_segment_batch(
+                encoder_output, pending = self._dispatch_segment_batch(
                     features[start : start + batch_size], tokenizer, options
                 )
-                in_flight.append((start, pending))
+                in_flight.append((start, encoder_output, pending))
 
         dispatch_next()
 
         for bi in range(len(starts)):
-            i, pending = in_flight.popleft()
+            i, encoder_output, pending = in_flight.popleft()
             dispatch_next()
             results = self._forward_collect(
-                pending, tokenizer, chunks_metadata[i : i + batch_size], options
+                encoder_output, pending, tokenizer, chunks_metadata[i : i + batch_size], options,
+                dispatch_hook=dispatch_next,
             )
-            dispatch_next()
             if log_progress:
                 self.model.logger.info(
                     "Processed batch %d of %d (chunks %d-%d of %d)",
@@ -1447,7 +1771,11 @@ class BatchedInferencePipeline:
                         text=segment["text"],
                         start=round(segment["start"], 3),
                         end=round(segment["end"], 3),
-                        words=None,
+                        words=(
+                            [Word(**word) for word in segment["words"]]
+                            if options.word_timestamps
+                            else None
+                        ),
                         tokens=segment["tokens"],
                         avg_logprob=segment["avg_logprob"],
                         no_speech_prob=segment["no_speech_prob"],
@@ -1463,13 +1791,28 @@ def restore_speech_timestamps(
     speech_chunks: List[dict],
     sampling_rate: int,
 ) -> Iterable[Segment]:
-    """Map VAD-compressed segment times back to the original clock.  Word
-    times come with word timestamps (ROADMAP.md, Queue 1 item 7)."""
+    """Map VAD-compressed segment and word times back to the original
+    clock.  A word's start and end map through the chunk of its midpoint,
+    and a segment with words then spans its first and last word."""
     ts_map = SpeechTimestampsMap(speech_chunks, sampling_rate)
 
     for segment in segments:
-        segment.start = ts_map.get_original_time(segment.start)
-        segment.end = ts_map.get_original_time(segment.end, is_end=True)
+        if segment.words:
+            words = []
+            for word in segment.words:
+                middle = (word.start + word.end) / 2
+                chunk_index = ts_map.get_chunk_index(middle)
+                word.start = ts_map.get_original_time(word.start, chunk_index)
+                word.end = ts_map.get_original_time(word.end, chunk_index)
+                words.append(word)
+
+            segment.start = words[0].start
+            segment.end = words[-1].end
+            segment.words = words
+        else:
+            segment.start = ts_map.get_original_time(segment.start)
+            segment.end = ts_map.get_original_time(segment.end, is_end=True)
+
         yield segment
 
 
@@ -1504,3 +1847,63 @@ def get_suppressed_tokens(
     )
 
     return tuple(sorted(set(suppress_tokens)))
+
+
+def merge_punctuations(alignment: List[dict], prepended: str, appended: str) -> None:
+    """Merge punctuation-only entries into their neighbours, in place."""
+    # prepend: walk right to left, gluing opening punctuation forward
+    i = len(alignment) - 2
+    j = len(alignment) - 1
+    while i >= 0:
+        previous = alignment[i]
+        following = alignment[j]
+        if previous["word"].startswith(" ") and previous["word"].strip() in prepended:
+            following["word"] = previous["word"] + following["word"]
+            following["tokens"] = previous["tokens"] + following["tokens"]
+            previous["word"] = ""
+            previous["tokens"] = []
+        else:
+            j = i
+        i -= 1
+
+    # append: walk left to right, gluing closing punctuation backward
+    i = 0
+    j = 1
+    while j < len(alignment):
+        previous = alignment[i]
+        following = alignment[j]
+        if not previous["word"].endswith(" ") and following["word"] in appended:
+            previous["word"] = previous["word"] + following["word"]
+            previous["tokens"] = previous["tokens"] + following["tokens"]
+            following["word"] = ""
+            following["tokens"] = []
+        else:
+            i = j
+        j += 1
+
+
+def _word_anomaly_score(word: dict) -> float:
+    """Anomalous words are very long, very short, or improbable."""
+    probability = word.get("probability", 0.0)
+    duration = word["end"] - word["start"]
+    score = 0.0
+    if probability < 0.15:
+        score += 1.0
+    if duration < 0.133:
+        score += (0.133 - duration) * 15
+    if duration > 2.0:
+        score += duration - 2.0
+    return score
+
+
+def _is_segment_anomaly(segment: Optional[dict]) -> bool:
+    if segment is None or not segment["words"]:
+        return False
+    words = [w for w in segment["words"] if w["word"] not in _PUNCTUATION]
+    words = words[:8]
+    score = sum(_word_anomaly_score(w) for w in words)
+    return score >= 3 or score + 0.01 >= len(words)
+
+
+def _next_words_segment(segments: List[dict]) -> Optional[dict]:
+    return next((s for s in segments if s["words"]), None)

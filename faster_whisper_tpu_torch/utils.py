@@ -1,6 +1,6 @@
 """Host-side helpers: the model registry and its local-cache lookup,
-timestamps, logging, device selection and the float32 scope of the feature
-paths."""
+timestamps, logging, device selection, the float32 scope of the feature
+paths and ``get_end`` of word timestamps."""
 
 import contextlib
 import logging
@@ -174,3 +174,12 @@ def format_timestamp(
         f"{hours_marker}{minutes:02d}:{seconds:02d}{decimal_marker}{milliseconds:03d}"
     )
 
+
+
+def get_end(segments: List[dict]) -> Optional[float]:
+    """End time of the last word of a list of segment dicts, else of the
+    last segment; None for no segments."""
+    return next(
+        (w["end"] for s in reversed(segments) for w in reversed(s["words"])),
+        segments[-1]["end"] if segments else None,
+    )

@@ -251,12 +251,9 @@ def test_no_speech_and_no_chunks(models):
         pipe.transcribe(np.zeros(16000 * 40, np.float32), language="en", vad_filter=False)
 
 
-@pytest.mark.parametrize("option,item", [("word_timestamps", 7), ("scheduler", 12)])
+@pytest.mark.parametrize("option,item", [("scheduler", 12)])
 def test_options_outside_the_slice_raise(models, option, item):
     _, pm = models
     match = rf"\(ROADMAP\.md, Queue 1 item {item}\)"
     with pytest.raises(NotImplementedError, match=match):
-        if option == "scheduler":
-            BatchedInferencePipeline(pm, scheduler=object())
-        else:
-            BatchedInferencePipeline(pm).transcribe(np.zeros(16000, np.float32), word_timestamps=True)
+        BatchedInferencePipeline(pm, scheduler=object())

@@ -5,7 +5,8 @@ refuses those imports with a meta-path finder, imports every module of
 ``faster_whisper_tpu_torch`` and ``chip_smoke``, runs a tiny transcribe and
 a tiny batched transcribe of ``docker/jfk.flac`` (decoded by the port's
 native FLAC decoder, built from its own ``csrc/flac_decoder.cpp``, VAD
-on) on the CPU, loads a CTranslate2 and an HF directory written by the
+on, with word timestamps through the native DTW of ``csrc/dtw.cpp``) on
+the CPU, loads a CTranslate2 and an HF directory written by the
 port with their ``tokenizer.json`` through ``WhisperModel(directory)``,
 and checks that the card is the default device.  A second test reads the
 sources for such imports.  scipy, which resamples in ``decode_audio``, is
@@ -81,10 +82,12 @@ CHILD = textwrap.dedent(
 
     speech = decode_audio("docker/jfk.flac")
     segments, info = BatchedInferencePipeline(model).transcribe(
-        speech, batch_size=2, beam_size=2, max_new_tokens=8
+        speech, batch_size=2, beam_size=2, max_new_tokens=8, word_timestamps=True,
+        suppress_tokens=[-1] + list(range(257, 1865)),  # text, not the micro vocabulary's specials
     )
     segments = list(segments)
     assert segments and 0 < info.duration_after_vad <= info.duration == 11.0
+    assert all(s.words is not None for s in segments) and any(s.words for s in segments)
     print("batched segments", len(segments), info.language)
 
     import os, tempfile
@@ -96,6 +99,8 @@ CHILD = textwrap.dedent(
     flac_lib = str(_build.library_path("flac_decoder.cpp"))
     maps = open("/proc/self/maps").read()
     assert flac_lib in maps and "libfwt_flac" not in maps, flac_lib
+    dtw_lib = str(_build.library_path("dtw.cpp"))
+    assert dtw_lib in maps and "libfwt_dtw" not in maps, dtw_lib
     assert _build.CSRC_DIR.parent.name == "faster_whisper_tpu_torch"
 
     tok = tokenizer_json(512, word_merges([" ask", " not", " what"]))

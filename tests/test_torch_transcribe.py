@@ -142,7 +142,7 @@ def test_fallback_ladder_samples_and_yields_well_formed_segments(models):
 
 @pytest.mark.parametrize(
     "option,item",
-    [("word_timestamps", 7), ("int4", 11), ("checkpoint", 10)],
+    [("int4", 11), ("checkpoint", 10)],
 )
 def test_options_outside_the_slice_raise(weights, option, item, tmp_path, monkeypatch):
     """Each refusal names its own ROADMAP.md Queue 1 item.  A model name
@@ -152,12 +152,8 @@ def test_options_outside_the_slice_raise(weights, option, item, tmp_path, monkey
         params_from_jax(jax.tree.map(np.asarray, weights), device="cpu"),
         tiny_test_config(), build_synthetic_tokenizer(), compute_type="float32", device="cpu",
     )
-    audio = synth_audio(1.0, seed=3)
     match = rf"\(ROADMAP\.md, Queue 1 item {item}\)"
-    if option == "word_timestamps":
-        with pytest.raises(NotImplementedError, match=match):
-            pm.transcribe(audio, **{option: True})
-    elif option == "int4":
+    if option == "int4":
         with pytest.raises(NotImplementedError, match=match):
             WhisperModel.from_parts(
                 pm.model.params, tiny_test_config(), build_synthetic_tokenizer(),
