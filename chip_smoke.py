@@ -8,8 +8,11 @@ Phases, each printing its own line with its seconds:
 1. device: requires a CUDA card, prints its name and power limit, turns
    TF32 off for float32 matmuls and convolutions;
 2. build: compiles every CUDA kernel of the main path from ``csrc/`` with
-   nvcc (one process per source, all started together) and prints the
-   ``-Xptxas -v`` register and shared-memory lines;
+   nvcc and the host libraries (FLAC, DTW, the VAD's state machine) with
+   g++, one process per source, all started together, and prints the
+   ``-Xptxas -v`` register and shared-memory lines; the libav media
+   decoder is left out (it needs FFmpeg's headers, which this machine may
+   lack, and no phase decodes a compressed container);
 3. kernels: holds each kernel form against its plain PyTorch version on
    the card, at the main path's shapes, in bfloat16 and in float32: K1 and
    K2 (beam self-attention over a raw and an int8 cache, with the write
@@ -17,7 +20,8 @@ Phases, each printing its own line with its seconds:
    one CUDA graph, which reuse its ticket counters), K3 (encoder flash
    attention, at ragged and full lengths), K4 over a raw and an int8 cache
    (decode cross-attention; two calls back to back and two layers in one
-   CUDA graph);
+   CUDA graph), the int8 form also over codes at 4-bit range (qmax 7, the
+   int4 cross cache);
 4. times: each kernel form, its plain version and, where one exists, the
    one PyTorch call that computes the same function, on the card (CUDA
    events around the replay of a CUDA graph of 20 calls, L2 warm), each
@@ -28,7 +32,8 @@ Phases, each printing its own line with its seconds:
 5. VAD: ``docker/jfk.flac`` decoded by the port's ``decode_audio`` and
    tiled to 5 minutes; the Silero VAD's probabilities and speech
    timestamps on the card against the same weights on the CPU, and its
-   seconds on each;
+   seconds on each; the native state machine (``hysteresis_native``) on
+   the card's probabilities against its plain Python loop, both timed;
 6. chunked mel: the device log-mel of the VAD's speech chunks on the card
    against the host ``FeatureExtractor`` on the same chunks;
 7. main path: ``WhisperModel.transcribe`` at large-v3-turbo width (random
@@ -36,15 +41,19 @@ Phases, each printing its own line with its seconds:
    three requests (a-c), at ``compute_type="int8"`` on two (d, e), at
    ``"float32"`` on one (f) and at ``"int8_float32"`` on one (g); and
    ``BatchedInferencePipeline.transcribe`` (VAD on, beam 5, batch 8, 128
-   new tokens per chunk) over the tiled audio, request h at bf16 and i at
-   ``"int8"``.  Each run has its launch counts set to 0 before and read
+   new tokens per chunk) over the tiled audio, request h at bf16, i at
+   ``"int8"``, n at ``"int4"`` and o at ``"int4"`` with
+   ``int4_group_size=128`` (n's and o's launch counts equal to i's).
+   Each run has its launch counts set to 0 before and read
    after: per decode step (over all rows and beams) four launches of K1
    and K4 in the run's activation type over a raw cache, or of K2 and
    K4's int8 form over an int8 cache, per encode (of a window, or of a
    batch of chunks) 32 of K3 in the run's activation type, and no launch
    of any other form;
-8. small model: a small model on the card, at bf16, int8, float32 and
-   int8_float32, against the same model on the CPU; then at float32
+8. small model: a small model on the card, at bf16, int8, float32,
+   int8_float32 and int4 (per channel and in groups), against the same
+   model on the CPU (at int4 its quantized decoder codes and scales must be
+   equal on both); then at float32
    through the pipeline, on ``clip_timestamps`` and with the defaults on
    ``docker/jfk.flac`` given as a path, whose tokens on the card must
    equal those on the CPU;
@@ -389,10 +398,11 @@ def check_beam_attention_graph(form, B=1, pos=40):
 # ---------------------------------------------------------------------------
 
 
-def k4_inputs(B, quant, K=5, H=20, D=64, L=4, T=1500, seed=0, dtype=torch.bfloat16):
+def k4_inputs(B, quant, K=5, H=20, D=64, L=4, T=1500, seed=0, dtype=torch.bfloat16, qmax=127):
     """A layer index, queries (B, H, K, D) in ``dtype`` and the stacked
-    (L, B, H, T, D) cross caches: raw in ``dtype``, or int8 codes with bf16
-    scales (L, B, H, 1, T) as the int8 decode stores them."""
+    (L, B, H, T, D) cross caches: raw in ``dtype``, or int8 codes within
+    ``qmax`` (7: the int4 cross cache) with bf16 scales (L, B, H, 1, T) as
+    the int8 and int4 decodes store them."""
     from faster_whisper_tpu_torch.ops.quant import QuantKV, quantize_kv
 
     g = torch.Generator(device="cuda")
@@ -405,16 +415,19 @@ def k4_inputs(B, quant, K=5, H=20, D=64, L=4, T=1500, seed=0, dtype=torch.bfloat
     if quant:
         ck, cv = (
             QuantKV(c.q, c.s.to(torch.bfloat16)[:, :, :, None].contiguous())
-            for c in (quantize_kv(ck), quantize_kv(cv))
+            for c in (quantize_kv(ck, qmax=qmax), quantize_kv(cv, qmax=qmax))
         )
     return L - 1, q, ck, cv
 
 
-K4_FORMS = {  # form -> (int8 cache, activation dtype)
-    "bf16": (False, torch.bfloat16),
-    "int8": (True, torch.bfloat16),
-    "f32": (False, torch.float32),
-    "int8 f32": (True, torch.float32),
+K4_FORMS = {  # form -> (int8 cache, activation dtype, qmax of the codes)
+    "bf16": (False, torch.bfloat16, 127),
+    "int8": (True, torch.bfloat16, 127),
+    "f32": (False, torch.float32, 127),
+    "int8 f32": (True, torch.float32, 127),
+    # the int8 form over the int4 cross cache: codes in [-7, 7]
+    "int8 qmax7": (True, torch.bfloat16, 7),
+    "int8 qmax7 f32": (True, torch.float32, 7),
 }
 
 
@@ -427,12 +440,13 @@ def check_cross_attention(batches=(1, 8), forms=tuple(K4_FORMS), Ts=(1500,), Ks=
 
     worst = {}
     for form in forms:
-        quant, dtype = K4_FORMS[form]
+        quant, dtype, qmax = K4_FORMS[form]
         for B in batches:
             for T in Ts:
                 for K in Ks:
-                    layer, q, ck, cv = k4_inputs(B, quant, K=K, L=L, T=T, seed=B + 10 * quant + T + K,
-                                                 dtype=dtype)
+                    seed = B + 10 * quant + T + K + 1000 * (qmax != 127)
+                    layer, q, ck, cv = k4_inputs(B, quant, K=K, L=L, T=T, seed=seed, dtype=dtype,
+                                                 qmax=qmax)
                     ref = cross_attend_ref(layer, q, ck, cv)
                     out = cross_attend(layer, q, ck, cv)
                     again = cross_attend(layer, q, ck, cv)
@@ -446,7 +460,7 @@ def check_cross_attention(batches=(1, 8), forms=tuple(K4_FORMS), Ts=(1500,), Ks=
                         raise AssertionError(f"K4 ({form}): a second call differs from the first at B={B}, K={K}, T={T}")
                     worst[form] = max(worst.get(form, 0.0), err)
         # Two layers in one graph, replayed twice.
-        layer, q, ck, cv = k4_inputs(batches[0], quant, L=L, T=Ts[0], seed=99, dtype=dtype)
+        layer, q, ck, cv = k4_inputs(batches[0], quant, L=L, T=Ts[0], seed=99, dtype=dtype, qmax=qmax)
         refs = [cross_attend_ref(i, q, ck, cv) for i in (layer, layer - 1)]
         for i in (layer, layer - 1):  # warm-up outside the capture
             cross_attend(i, q, ck, cv)
@@ -756,9 +770,10 @@ def check_counts(counts, per_step, per_encode, cfg):
 def run_main_path(speech):
     """Requests a-c at bf16, d-e at int8, f at float32 and g at
     int8_float32, on the same random weights, and the batched requests h
-    (bf16) and i (int8) over ``speech``; returns the counts of the six
-    runs, and for phase 10 the weights, config and vocabulary with request
-    i's segments and seconds."""
+    (bf16), i (int8), n (int4) and o (int4, groups of 128 input rows) over
+    ``speech``; returns the counts of the runs, and for phase 10 the
+    weights, config and vocabulary with request i's segments and
+    seconds."""
     from faster_whisper_tpu_torch.models.config import CONFIGS
     from faster_whisper_tpu_torch.models.load import random_params
     from faster_whisper_tpu_torch.testing import build_synthetic_tokenizer
@@ -815,6 +830,24 @@ def run_main_path(speech):
                 model, f"{batched}: {compute_type}", speech, cfg
             )
             check_counts(runs[batched], per_step=per_step, per_encode=per_encode, cfg=cfg)
+
+    for key, group in (("n", None), ("o", 128)):
+        del model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model = WhisperModel.from_parts(params, cfg, tok, compute_type="int4", int4_group_size=group)
+        torch.cuda.synchronize()
+        w2 = model.model.params["decoder"]["layers"]["mlp"]["w2"]
+        print(f"large-v3-turbo at compute_type='int4', int4_group_size={group} on the card: "
+              f"{time.perf_counter() - t0:.3f} s; decoder mlp.w2 codes {tuple(w2.q.shape)} in "
+              f"[{int(w2.q.min())}, {int(w2.q.max())}], scales {tuple(w2.s.shape)}")
+        runs[key] = run_batched(model, f"{key}: int4, int4_group_size={group}", speech, cfg)[0]
+        check_counts(runs[key], per_step=("k2", "k4_int8"), per_encode="k3", cfg=cfg)
+        print(f"request {key} against request i: equal launch counts: {runs[key] == runs['i']}")
+        if runs[key] != runs["i"]:
+            raise AssertionError(f"request {key}'s launch counts {runs[key]} differ from i's {runs['i']}")
+    del model
+    torch.cuda.empty_cache()
     return runs, later
 
 
@@ -854,7 +887,9 @@ def run_batched(model, name, audio, cfg, **kwargs):
         seconds = time.perf_counter() - t0
         counts = read_counts()
     finally:
-        del model.encode
+        # the wrappers' closures would tie the pipeline and the model into
+        # cycles that keep the model's weights alive into the next request
+        del model.encode, pipeline._dispatch_segment_batch
     duration = len(audio) / 16000
     check_segments(segments, info, duration, cfg.n_vocab)
     if sum(chunks) < 1 or len(rows) != len(chunks) or counts["encodes"] != len(rows):
@@ -863,7 +898,9 @@ def run_batched(model, name, audio, cfg, **kwargs):
     print(f"request {name}, BatchedInferencePipeline, VAD on, beam 5, batch 8, "
           f"{duration:.1f} s of audio ({info.duration_after_vad:.1f} s of speech): "
           f"{sum(chunks)} chunks in {len(chunks)} batches of {chunks} chunks, encoded at "
-          f"{rows} rows (pow2 buckets), {counts['steps']} decode steps, {len(segments)} segments, "
+          f"{rows} rows (pow2 buckets), {counts['steps']} decode steps "
+          f"({sum(batch_seconds) * 1e3 / max(counts['steps'], 1):.2f} ms per step over the batches' "
+          f"seconds), {len(segments)} segments, "
           f"{n_tokens} tokens, {seconds:.3f} s ({', '.join(f'{b:.3f}' for b in batch_seconds)} s "
           f"encoding and decoding the batches, {seconds - sum(batch_seconds):.3f} s the rest: "
           f"upload, VAD, log-mel, segments), {duration / seconds:.2f} audio s per wall s, "
@@ -907,23 +944,51 @@ def check_small_model_against_cpu():
     """The card's path against the same weights on the CPU (plain versions)
     on a small input: at bf16 and at float32 against float32 on the CPU, at
     int8 and at int8_float32 against int8_float32 on the CPU (the card's
-    int8 product): encoder states, and the language probabilities of the
-    first decoder step, within the tolerance of the card's type times their
-    largest value."""
+    int8 product), at int4 (per channel, and in groups of 64 input rows)
+    against int4 on the CPU: encoder states, and the language
+    probabilities of the first decoder step, within the tolerance of the
+    card's type times their largest value.  At int4 the quantized decoder
+    (codes and scales of every matmul and the logits head) must be equal
+    on the card and on the CPU; the codes that differ, by one unit or
+    more, are counted and printed."""
+    from faster_whisper_tpu_torch.ops.quant import QuantizedLinear
     from faster_whisper_tpu_torch.transcribe import WhisperModel
 
     cfg, cpu, tok = small_model_parts()
     audio = synth_audio(12.0, seed=3)
     # int8 activation quantization turns float32 noise into whole code
     # steps, so the int8 types are held to the bf16 tolerances.
-    for card_type, cpu_type, enc_rel, prob_rel in (
-        ("bfloat16", "float32", 3 * BF16_REL_TOL, BF16_REL_TOL),
-        ("int8", "int8_float32", 3 * BF16_REL_TOL, BF16_REL_TOL),
-        ("float32", "float32", F32_MODEL_TOL, F32_MODEL_TOL),
-        ("int8_float32", "int8_float32", 3 * BF16_REL_TOL, BF16_REL_TOL),
+    for card_type, cpu_type, enc_rel, prob_rel, group in (
+        ("bfloat16", "float32", 3 * BF16_REL_TOL, BF16_REL_TOL, None),
+        ("int8", "int8_float32", 3 * BF16_REL_TOL, BF16_REL_TOL, None),
+        ("float32", "float32", F32_MODEL_TOL, F32_MODEL_TOL, None),
+        ("int8_float32", "int8_float32", 3 * BF16_REL_TOL, BF16_REL_TOL, None),
+        ("int4", "int4", 3 * BF16_REL_TOL, BF16_REL_TOL, None),
+        ("int4", "int4", 3 * BF16_REL_TOL, BF16_REL_TOL, 64),
     ):
-        m_cpu = WhisperModel.from_parts(cpu, cfg, tok, compute_type=cpu_type, device="cpu")
-        m_gpu = WhisperModel.from_parts(cpu, cfg, tok, compute_type=card_type, device="cuda")
+        m_cpu = WhisperModel.from_parts(cpu, cfg, tok, compute_type=cpu_type, device="cpu",
+                                        int4_group_size=group)
+        m_gpu = WhisperModel.from_parts(cpu, cfg, tok, compute_type=card_type, device="cuda",
+                                        int4_group_size=group)
+        if card_type == "int4":
+            card_type = f"int4, int4_group_size={group}"
+            dec_cpu, dec_gpu = m_cpu.model.params["decoder"], m_gpu.model.params["decoder"]
+            pairs = [(dec_cpu["logits_w"], dec_gpu["logits_w"])] + [
+                (dec_cpu["layers"][sec][name], dec_gpu["layers"][sec][name])
+                for sec in ("self_attn", "cross_attn", "mlp") for name in dec_cpu["layers"][sec]
+                if isinstance(dec_cpu["layers"][sec][name], QuantizedLinear)
+            ]
+            n_codes = sum(a.q.numel() for a, _ in pairs)
+            n_diff = sum(int((a.q != b.q.cpu()).sum()) for a, b in pairs)
+            n_one = sum(int(((a.q.int() - b.q.cpu().int()).abs() == 1).sum()) for a, b in pairs)
+            same_s = all(torch.equal(a.s, b.s.cpu()) for a, b in pairs)
+            amax = max(int(b.q.abs().max()) for _, b in pairs)
+            print(f"small model {card_type}: {len(pairs)} quantized decoder matrices, {n_codes} codes "
+                  f"(max |code| {amax}); codes that differ between card and CPU: {n_diff} "
+                  f"({n_one} by one unit); scales equal: {same_s}")
+            if n_diff or not same_s or amax > 7:
+                raise AssertionError(f"the int4 decoder quantized on the card ({card_type}) differs "
+                                     "from the CPU's")
         feats = m_cpu.feature_extractor(audio)[:, :3000]
         feats = np.pad(feats, ((0, 0), (0, 3000 - feats.shape[1])))
         x_cpu = m_cpu.encode(feats)
@@ -980,8 +1045,11 @@ def _synced_seconds(fn):
 def check_vad(audio, card):
     """The Silero VAD on the card against the same weights on the CPU:
     probabilities within VAD_PROB_TOL, speech timestamps equal, for the
-    default options and for the batched pipeline's.  Returns the
+    default options and for the batched pipeline's.  Each card run's state
+    machine (``hysteresis_native``) is held equal to its plain Python loop
+    on the same probabilities and arguments, both timed.  Returns the
     pipeline's speech timestamps."""
+    from faster_whisper_tpu_torch import vad
     from faster_whisper_tpu_torch.ops.mel import upload_audio
     from faster_whisper_tpu_torch.vad import VadOptions, get_speech_timestamps, get_vad_model
 
@@ -1003,14 +1071,34 @@ def check_vad(audio, card):
         ("default", VadOptions()),
         ("pipeline", VadOptions(max_speech_duration_s=30, min_silence_duration_ms=160)),
     ):
-        on_card, sec_card = _synced_seconds(
-            lambda: get_speech_timestamps(upload_audio(audio, "cuda"), opts)
-        )
+        native, calls = vad.hysteresis_native, []
+
+        def recorded(probs, *args):
+            calls.append((probs, args))
+            return native(probs, *args)
+
+        vad.hysteresis_native = recorded
+        try:
+            on_card, sec_card = _synced_seconds(
+                lambda: get_speech_timestamps(upload_audio(audio, "cuda"), opts)
+            )
+        finally:
+            vad.hysteresis_native = native
         on_cpu = get_speech_timestamps(audio, opts, device="cpu")
         print(f"VAD speech timestamps, {label} options: {len(on_card)} chunks on the card in "
               f"{sec_card:.4f} s (upload, forward, state machine), {len(on_cpu)} on the CPU")
         if on_card != on_cpu:
             raise AssertionError(f"VAD speech timestamps ({label}) differ between card and CPU")
+        if len(calls) != 1:
+            raise AssertionError(f"the VAD ran its native state machine {len(calls)} times, not once")
+        (probs_card, args), = calls
+        out_native, sec_native = _synced_seconds(lambda: native(probs_card, *args))
+        out_py, sec_py = _synced_seconds(lambda: vad._hysteresis_py(probs_card, *args))
+        print(f"VAD state machine, {label} options, over the card's {len(probs_card)} window "
+              f"probabilities: native {sec_native * 1e3:.3f} ms, Python loop {sec_py * 1e3:.3f} ms "
+              f"on the host of {card}; {len(out_native)} speech segments, equal: {out_native == out_py}")
+        if out_native != out_py:
+            raise AssertionError(f"the native VAD state machine differs from the Python loop ({label})")
     return on_card
 
 
@@ -1604,21 +1692,24 @@ def main():
                     **{k: t[k] for k in ("ms", "cold_ms", "call_ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")})
 
-    bf16, int8, fp32, int8_f32, req_h, req_i, req_j, req_k, req_l, req_m = (
-        runs[k] for k in ("bf16", "int8", "f32", "int8_f32", "h", "i", "j", "k", "l", "m")
+    bf16, int8, fp32, int8_f32, req_h, req_i, req_j, req_k, req_l, req_m, req_n, req_o = (
+        runs[k] for k in ("bf16", "int8", "f32", "int8_f32", "h", "i", "j", "k", "l", "m", "n", "o")
     )
+    # the K4 int8 form's error: over int8 codes and over the int4 cross cache's
+    errs["K4 int8"] = max(errs["K4 int8"], errs["K4 int8 qmax7"])
+    errs["K4 int8 f32"] = max(errs["K4 int8 f32"], errs["K4 int8 qmax7 f32"])
     kernels = [
         entry("beam_attend_append bf16 (K1)", "K1", "beam_attention.cu", K1_REPLACES,
               bf16["k1"] + req_h["k1"] + req_j["k1"] + req_l["k1"]),
         entry("beam_attend_append f32 (K1)", "K1 f32", "beam_attention.cu", K1_REPLACES,
               fp32["k1_f32"]),
         entry("beam_attend_append int8 (K2)", "K2", "beam_attention.cu", K2_REPLACES,
-              int8["k2"] + req_i["k2"] + req_k["k2"] + req_m["k2"]),
+              int8["k2"] + req_i["k2"] + req_k["k2"] + req_m["k2"] + req_n["k2"] + req_o["k2"]),
         entry("beam_attend_append int8, f32 activations (K2)", "K2 f32", "beam_attention.cu",
               K2_REPLACES, int8_f32["k2_f32"]),
         entry("mha_flash bf16 (K3)", "K3", "flash_attention.cu", K3_REPLACES,
               bf16["k3"] + int8["k3"] + req_h["k3"] + req_i["k3"] + req_j["k3"] + req_k["k3"]
-              + req_l["k3"] + req_m["k3"]),
+              + req_l["k3"] + req_m["k3"] + req_n["k3"] + req_o["k3"]),
         entry("mha_flash f32 (K3)", "K3 f32", "flash_attention.cu", K3_REPLACES,
               fp32["k3_f32"] + int8_f32["k3_f32"]),
         entry("cross_attend bf16 (K4a)", "K4 bf16", "cross_attention.cu", K4A_REPLACES,
@@ -1626,7 +1717,8 @@ def main():
         entry("cross_attend f32 (K4a)", "K4 f32", "cross_attention.cu", K4A_REPLACES,
               fp32["k4_f32"]),
         entry("cross_attend int8 (K4b, K4c)", "K4 int8", "cross_attention.cu", K4B_REPLACES,
-              int8["k4_int8"] + req_i["k4_int8"] + req_k["k4_int8"] + req_m["k4_int8"]),
+              int8["k4_int8"] + req_i["k4_int8"] + req_k["k4_int8"] + req_m["k4_int8"]
+              + req_n["k4_int8"] + req_o["k4_int8"]),
         entry("cross_attend int8, f32 activations (K4b, K4c)", "K4 int8 f32", "cross_attention.cu",
               K4B_REPLACES, int8_f32["k4_int8_f32"]),
     ]

@@ -1,22 +1,31 @@
 """Audio decoding and mel-frame padding.
 
-The port's copy of the built-in WAV/FLAC path of
-``faster_whisper_tpu/audio.py``: a WAV or FLAC file, or a file-like object
-holding one, becomes float32 PCM at the requested sampling rate, mixed
-down to mono or split into its two channels, resampled by
-``scipy.signal.resample_poly``.  FLAC decodes through the native decoder
-(``flac.py::decode_flac_native``).  Other containers (MP3, M4A, OGG, ...)
-need PyAV or FFmpeg's libraries, which are not ported (ROADMAP.md, Queue 1
-item 10); they raise ``NotImplementedError``.
+The port's copy of ``faster_whisper_tpu/audio.py``: a media file, or a
+file-like object holding one, becomes float32 PCM at the requested
+sampling rate, mixed down to mono or split into its two channels.  The
+backends, tried in the JAX package's order (PyAV, its first, is not
+ported):
+
+1. the built-in WAV and FLAC decoders (FLAC through the native decoder,
+   ``flac.py::decode_flac_native``), resampled by
+   ``scipy.signal.resample_poly``;
+2. the native libav shim (``media_native.py``, ``csrc/media_decoder.cpp``
+   linked against the system FFmpeg libraries) for every other container
+   and codec;
+3. the ``ffmpeg`` command line, when it is on PATH.
+
+When none of them decodes the input, ``decode_audio`` raises the JAX
+package's ``RuntimeError``, with the shim's build or decode error added.
 """
 
+import io
 import os
+import shutil
+import subprocess
 
 from typing import BinaryIO, Union
 
 import numpy as np
-
-from faster_whisper_tpu_torch.utils import NOT_PORTED
 
 
 def decode_audio(
@@ -24,7 +33,7 @@ def decode_audio(
     sampling_rate: int = 16000,
     split_stereo: bool = False,
 ):
-    """Decodes a WAV or FLAC file.
+    """Decodes the audio.
 
     Args:
       input_file: Path to the input file or a file-like object.
@@ -43,11 +52,27 @@ def decode_audio(
     else:
         data = input_file.read()
 
-    if data[:4] not in (b"RIFF", b"fLaC"):
-        raise NotImplementedError(
-            "decode_audio: containers other than WAV and FLAC are " + NOT_PORTED.format(10)
-        )
-    return _decode_audio_builtin(data, sampling_rate, split_stereo)
+    # WAV/FLAC take the built-in decoders; everything else goes through the
+    # native libav shim, then the ffmpeg CLI as a last resort.
+    if data[:4] in (b"RIFF", b"fLaC"):
+        return _decode_audio_builtin(data, sampling_rate, split_stereo)
+
+    from faster_whisper_tpu_torch.media_native import decode_media_native
+
+    audio, why = decode_media_native(data, sampling_rate, split_stereo)
+    if audio is not None:
+        if split_stereo:
+            return audio[0::2], audio[1::2]
+        return audio
+
+    if _have_ffmpeg():
+        return _decode_audio_ffmpeg(io.BytesIO(data), sampling_rate, split_stereo)
+
+    raise RuntimeError(
+        "decode_audio: the input is not WAV/FLAC and no decode backend is "
+        "available for compressed formats (native libav shim failed to "
+        f"build/decode, no PyAV, no ffmpeg CLI). {why}"
+    )
 
 
 def pad_or_trim(array: np.ndarray, length: int = 3000, *, axis: int = -1) -> np.ndarray:
@@ -64,6 +89,45 @@ def pad_or_trim(array: np.ndarray, length: int = 3000, *, axis: int = -1) -> np.
         array = np.pad(array, pad_widths)
 
     return array
+
+
+def _have_ffmpeg() -> bool:
+    return shutil.which("ffmpeg") is not None
+
+
+def _decode_audio_ffmpeg(input_file, sampling_rate, split_stereo):
+    """Decode through the ``ffmpeg`` command line to s16le PCM at
+    ``sampling_rate``, the JAX package's command."""
+    channels = 2 if split_stereo else 1
+    cmd = [
+        "ffmpeg",
+        "-nostdin",
+        "-threads",
+        "0",
+        "-i",
+        "pipe:0" if not isinstance(input_file, (str, os.PathLike)) else str(input_file),
+        "-f",
+        "s16le",
+        "-ac",
+        str(channels),
+        "-acodec",
+        "pcm_s16le",
+        "-ar",
+        str(sampling_rate),
+        "pipe:1",
+    ]
+    if isinstance(input_file, (str, os.PathLike)):
+        out = subprocess.run(cmd, capture_output=True, check=True).stdout
+    else:
+        data = input_file.read()
+        out = subprocess.run(cmd, input=data, capture_output=True, check=True).stdout
+
+    audio = np.frombuffer(out, dtype=np.int16).astype(np.float32) / 32768.0
+
+    if split_stereo:
+        return audio[0::2], audio[1::2]
+
+    return audio
 
 
 def _decode_audio_builtin(data, sampling_rate, split_stereo):

@@ -22,7 +22,9 @@ Layout:
     ancestry table, never the cache.  Each layer's append+attend is kernel
     K1 on the card (``ops/beam_attention.py``), K2 on the int8 cache.
   * ``kv_int8`` (the int8 compute types) stores both caches as int8 codes
-    with bf16 scales (``ops/quant.py::QuantKV``).
+    with bf16 scales (``ops/quant.py::QuantKV``); ``int4`` quantizes the
+    cross cache to 4-bit range (codes in [-7, 7], int8 storage), which K4's
+    int8 form reads as it reads int8 codes.
   * Tokens are recorded per step in position-history tables and the
     hypotheses rebuilt on the host by walking back-pointers.
 """
@@ -63,6 +65,20 @@ class GenOptions:
     # Cache and buffer length: a bucketed bound on max_length (<= 448).
     ctx_cap: int = 448
     kv_int8: bool = False  # int8 self and cross caches (QuantKV)
+    # compute_type="int4": the cross cache at 4-bit range (cross qmax 7);
+    # the weights arrive 4-bit from ops/quant.py::quantize_params_int4
+    int4: bool = False
+
+    def __post_init__(self):
+        if self.int4 and not self.kv_int8:
+            raise ValueError(_INT4_WITHOUT_KV_INT8)
+
+
+_INT4_WITHOUT_KV_INT8 = (
+    "int4=True requires kv_int8=True: the packed-int4 cross cache "
+    "rides the QuantKV scale path (_expand_caches), so without "
+    "kv_int8 the cross-KV half of int4 would silently not apply"
+)
 
 
 class WhisperGenerationResult:
@@ -178,15 +194,16 @@ def _tokens_view(hist_tok: torch.Tensor, anc: torch.Tensor) -> torch.Tensor:
     return torch.gather(hist_tok.transpose(1, 2), 1, anc.long())
 
 
-def _expand_caches(cache0, K: int, kv_int8: bool):
+def _expand_caches(cache0, K: int, kv_int8: bool, cross_qmax: int = 127):
     """The prefill cache on the (B, K) beam grid: self K/V (L, B, H, ctx,
     D) -> (L, B, H, K, ctx, D), contiguous for K1/K2; the shared cross K/V
     (L, B, H, T, D) stay in the model dtype.
 
     With ``kv_int8`` both are quantized per (position, head) row over D:
     the self caches become QuantKV with scales (L, B, H, K, ctx), the cross
-    caches QuantKV with scales (L, B, H, 1, T).  The scales are stored in
-    bf16, in float32 runs too, as the JAX package stores them."""
+    caches QuantKV with scales (L, B, H, 1, T), their codes within
+    ``cross_qmax`` (7 for int4).  The scales are stored in bf16, in
+    float32 runs too, as the JAX package stores them."""
 
     def bcast(a):  # (L, B, H, ...) -> (L, B, H, K, ...)
         return a[:, :, :, None].expand(a.shape[:3] + (K,) + a.shape[3:]).contiguous()
@@ -197,7 +214,8 @@ def _expand_caches(cache0, K: int, kv_int8: bool):
         )
     sdt = torch.bfloat16
     skq, svq = quantize_kv(cache0.self_k), quantize_kv(cache0.self_v)
-    ckq, cvq = quantize_kv(cache0.cross_k), quantize_kv(cache0.cross_v)
+    ckq = quantize_kv(cache0.cross_k, qmax=cross_qmax)
+    cvq = quantize_kv(cache0.cross_v, qmax=cross_qmax)
     return (
         QuantKV(bcast(skq.q), bcast(skq.s.to(sdt))),
         QuantKV(bcast(svq.q), bcast(svq.s.to(sdt))),
@@ -254,7 +272,9 @@ def beam_search(
     first_logits, cache0, no_speech_prob = _prefill(
         params, config, meta, xa, prompt, prompt_len, sot_pos, ctx
     )
-    self_k, self_v, cross_k, cross_v = _expand_caches(cache0, K, gen_opts.kv_int8)
+    self_k, self_v, cross_k, cross_v = _expand_caches(
+        cache0, K, gen_opts.kv_int8, cross_qmax=7 if gen_opts.int4 else 127
+    )
 
     k_arange = torch.arange(K, device=dev)
     ctx_ids = torch.arange(ctx, device=dev)
@@ -418,7 +438,9 @@ def sample(
     first_logits, cache0, no_speech_prob = _prefill(
         params, config, meta, xa, prompt, prompt_len, sot_pos, ctx
     )
-    self_k, self_v, cross_k, cross_v = _expand_caches(cache0, K, gen_opts.kv_int8)
+    self_k, self_v, cross_k, cross_v = _expand_caches(
+        cache0, K, gen_opts.kv_int8, cross_qmax=7 if gen_opts.int4 else 127
+    )
 
     ctx_ids = torch.arange(ctx, device=dev)
     tokens = torch.zeros((b, K, ctx), dtype=torch.long, device=dev)
@@ -561,12 +583,14 @@ def generate_dispatch(
     with_timestamps: bool = True,
     rng_seed: Optional[Union[int, Sequence[int]]] = None,
     kv_int8: bool = False,
+    int4: bool = False,
 ) -> PendingGeneration:
     """Run a generation on ``encoder_output``'s device and return its
     tensors; ``generate_collect`` unpacks them.  A per-row sequence of
     temperatures runs one sampling row per temperature (the batched
     fallback ladder).  ``kv_int8`` decodes over int8 self and cross
-    caches."""
+    caches; ``int4`` (which needs ``kv_int8``: ``GenOptions`` raises
+    otherwise) over a cross cache at 4-bit range."""
     b = len(prompts)
     if encoder_output.shape[0] != b:
         raise ValueError(f"{b} prompts for {encoder_output.shape[0]} encoder rows")
@@ -621,6 +645,7 @@ def generate_dispatch(
                 sampling_topk=sampling_topk,
                 ctx_cap=ctx_cap,
                 kv_int8=kv_int8,
+                int4=int4,
             )
             generators = []
             for seed in _row_seeds(rng_seed, b):
@@ -640,6 +665,7 @@ def generate_dispatch(
             length_penalty=length_penalty,
             ctx_cap=ctx_cap,
             kv_int8=kv_int8,
+            int4=int4,
         )
         arrays = beam_search(
             params, config, gen_opts, proc_opts, meta, encoder_output,

@@ -27,6 +27,7 @@ from faster_whisper_tpu_torch.generation.processors import TokenMeta
 from faster_whisper_tpu_torch.models import model as M
 from faster_whisper_tpu_torch.models.config import WhisperConfig
 from faster_whisper_tpu_torch.ops.attention import mha
+from faster_whisper_tpu_torch.ops.quant import QuantizedLinear
 from faster_whisper_tpu_torch.tokenizer import _LANGUAGE_CODES
 
 
@@ -252,12 +253,31 @@ class WhisperEngine:
         hf_tokenizer=None,
         token_ids: Optional[dict] = None,
         kv_int8: bool = False,
+        int4: bool = False,
     ):
         """``kv_int8`` decodes over int8 self and cross KV caches (the int8
         compute types; ``params`` is then an int8 tree from
-        ``ops/quant.py::quantize_params``)."""
+        ``ops/quant.py::quantize_params``).  ``int4`` (``compute_type=
+        "int4"``) wants a tree from ``quantize_params_int4`` and keeps the
+        cross cache at 4-bit range; the self cache stays at int8 range."""
         self.params = params
         self.kv_int8 = kv_int8
+        self.int4 = int4
+        if int4:
+            if not kv_int8:
+                raise ValueError("int4=True requires kv_int8=True")
+            lw = params["decoder"].get("logits_w")
+            if not isinstance(lw, QuantizedLinear):
+                raise ValueError(
+                    "int4=True requires quantized params (decoder.logits_w "
+                    "is missing or not a QuantizedLinear): quantize with "
+                    "ops.quant.quantize_params_int4 (compute_type='int4')"
+                )
+            if int(lw.q.abs().max()) > 7:
+                raise ValueError(
+                    "int4=True but params are int8-range: quantize with "
+                    "ops.quant.quantize_params_int4 (compute_type='int4')"
+                )
         self.config = config
         self.device = params["decoder"]["token_embed"].device
         if token_ids is None:
@@ -344,6 +364,7 @@ class WhisperEngine:
             with_timestamps=self.meta.no_timestamps not in prompts[0],
             rng_seed=rng_seed,
             kv_int8=self.kv_int8,
+            int4=self.int4,
         )
 
     def detect_language(self, encoder_output: torch.Tensor):

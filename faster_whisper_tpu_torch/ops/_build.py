@@ -2,12 +2,19 @@
 
 Each source under ``csrc/`` has a plain C interface and becomes one shared
 library under ``build/torch_kernels/`` at the root of the checkout, named
-after a hash of the source and the compiler flags: an unchanged source is
-built once and then reused.  The CUDA kernels (``.cu``) are built with
-``nvcc``; the host libraries (``.cpp``: the FLAC decoder and the DTW of
-word timestamps) with the host ``g++``.  The build runs at first use, or for every source at once (one
-compiler per source, started together) through ``build()``.  A failed
-build raises; nothing falls back to a plain version.
+after a hash of the source and the compiler and link flags: an unchanged
+source is built once and then reused.  The CUDA kernels (``.cu``) are
+built with ``nvcc``; the host libraries (``.cpp``: the FLAC decoder, the
+DTW of word timestamps, the VAD's state machine and the media decoder)
+with the host ``g++``.  A source may link system libraries (``LINK_FLAGS``:
+the media decoder links FFmpeg's).
+
+The build runs at first use, or for the default set at once (one compiler
+per source, started together) through ``build()``.  The default set is
+every source but those that link system libraries, which a machine may
+lack; they are built only when first used.  A failed build raises; the kernels
+and the FLAC, DTW and VAD libraries never fall back to a plain version
+(``media_native.py`` passes its build error on to ``decode_audio``).
 """
 
 import ctypes
@@ -29,8 +36,12 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+# source -> the system libraries it links (flags after the source on the
+# command line).  Such a source is left out of the default build set: a
+# machine may lack the libraries and their headers.
+LINK_FLAGS = {"media_decoder.cpp": ("-lavformat", "-lavcodec", "-lavutil", "-lswresample")}
 
-_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
+_P, _I, _F, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long, ctypes.c_double
 
 # source file -> {C function: argtypes}; a kernel launcher returns a
 # cudaError_t as an int, 0 on success; ``_RESTYPES`` names the others.
@@ -61,8 +72,19 @@ SIGNATURES = {
     },
     # returns the path's length
     "dtw.cpp": {"fwt_dtw": [_P, _L, _L, _P, _P]},
+    # returns the number of speech segments written
+    "vad_sm.cpp": {"fwt_vad_hysteresis": [_P, _L, _D, _D, _L, _D, _D, _D, _D, _L, _P, _L]},
+    # returns 0 or a negative code (bad arguments, allocation, no audio
+    # stream, no decoder, a failed conversion)
+    "media_decoder.cpp": {
+        "fwt_media_decode": [
+            ctypes.c_char_p, ctypes.c_size_t, _I, _I,
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_int16)), ctypes.POINTER(ctypes.c_int64),
+        ],
+        "fwt_media_free": [ctypes.POINTER(ctypes.c_int16)],
+    },
 }
-_RESTYPES = {"fwt_flac_free": None, "fwt_dtw": _L}
+_RESTYPES = {"fwt_flac_free": None, "fwt_dtw": _L, "fwt_vad_hysteresis": _L, "fwt_media_free": None}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -93,18 +115,21 @@ def _command(source: str):
 
 
 def library_path(source: str) -> Path:
-    digest = hashlib.sha256(
-        (CSRC_DIR / source).read_bytes() + " ".join(_command(source)[1]).encode()
-    ).hexdigest()[:16]
+    flags = (*_command(source)[1], *LINK_FLAGS.get(source, ()))
+    digest = hashlib.sha256((CSRC_DIR / source).read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
 
 
 def build(sources: Optional[Iterable[str]] = None) -> Dict[str, str]:
-    """Build the libraries that are missing, one compiler per source, all
-    started together.  Returns {source: compiler output} (for the kernels
-    the ``-Xptxas -v`` register and shared-memory lines), "(cached)" for a
-    library that was already built.  Raises if any build fails."""
-    sources = list(SIGNATURES if sources is None else sources)
+    """Build the libraries of ``sources`` (default: every source that
+    links no system library) that are missing, one compiler per source,
+    all started together.  Returns {source: compiler output} (for the
+    kernels the ``-Xptxas -v`` register and shared-memory lines),
+    "(cached)" for a library that was already built.  Raises if any build
+    fails."""
+    if sources is None:
+        sources = [src for src in SIGNATURES if src not in LINK_FLAGS]
+    sources = list(sources)
     logs, procs = {}, {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     for src in sources:
@@ -114,7 +139,7 @@ def build(sources: Optional[Iterable[str]] = None) -> Dict[str, str]:
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         compiler, flags = _command(src)
-        cmd = [compiler(), *flags, "-o", str(tmp), str(CSRC_DIR / src)]
+        cmd = [compiler(), *flags, "-o", str(tmp), str(CSRC_DIR / src), *LINK_FLAGS.get(src, ())]
         procs[src] = (
             subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True

@@ -29,9 +29,13 @@ or HF safetensors directory, or the same files held in memory
 Hugging Face cache only (``utils.py::download_model``): the port
 downloads nothing.
 
+``compute_type="int4"`` puts the decoder's weights and the logits head
+at 4-bit range (``ops/quant.py::quantize_params_int4``, per output channel
+or in groups of ``int4_group_size`` input rows) and the cross cache at
+4-bit range; the encoder and the self cache stay at int8 range.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: containers other than WAV and FLAC, the int4 compute type,
-the continuous-batching scheduler and more than one device.
+ROADMAP item: the continuous-batching scheduler and more than one device.
 """
 
 import itertools
@@ -41,10 +45,11 @@ import os
 import zlib
 
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 from inspect import signature
 from math import ceil
 from typing import BinaryIO, Iterable, List, Optional, Tuple, Union
+from warnings import warn
 
 import numpy as np
 import torch
@@ -76,6 +81,14 @@ class Word:
     word: str
     probability: float
 
+    def _asdict(self):
+        warn(
+            "Word._asdict() method is deprecated, use dataclasses.asdict(Word) instead",
+            DeprecationWarning,
+            2,
+        )
+        return asdict(self)
+
 
 @dataclass
 class Segment:
@@ -90,6 +103,15 @@ class Segment:
     no_speech_prob: float
     words: Optional[List[Word]]
     temperature: Optional[float]
+
+    def _asdict(self):
+        warn(
+            "Segment._asdict() method is deprecated, use dataclasses.asdict(Segment)"
+            " instead",
+            DeprecationWarning,
+            2,
+        )
+        return asdict(self)
 
 
 @dataclass
@@ -136,7 +158,8 @@ class TranscriptionInfo:
 _PUNCTUATION = "\"'“¿([{-\"'.。,，!！?？:：”)]}、"
 
 # compute_type -> activation dtype (bf16 where GPUs' CT2 uses fp16); the
-# int8 types add W8A8 int8 weights and int8 KV caches (ops/quant.py)
+# int8 types add W8A8 int8 weights and int8 KV caches, int4 4-bit-range
+# decoder weights and cross cache (ops/quant.py)
 _COMPUTE_TYPES = {
     "default": torch.bfloat16,
     "auto": torch.bfloat16,
@@ -147,14 +170,47 @@ _COMPUTE_TYPES = {
     "int8_float16": torch.bfloat16,
     "int8_bfloat16": torch.bfloat16,
     "int8_float32": torch.float32,
+    "int4": torch.bfloat16,
 }
 
 
 def _check_compute_type(compute_type: str) -> None:
-    if compute_type == "int4":
-        raise NotImplementedError("compute_type='int4' is " + NOT_PORTED.format(11))
     if compute_type not in _COMPUTE_TYPES:
         raise ValueError(f"unsupported compute_type: {compute_type}")
+
+
+def _fallback_tokenizer(multilingual: bool):
+    """The vocabulary of a model directory without ``tokenizer.json``:
+    ``tokenizer.json`` of ``openai/whisper-tiny`` (``.en`` for an
+    English-only model), as the reference reads it, from the local Hugging
+    Face cache only (``download_model``).  Raises ``FileNotFoundError``
+    naming the directories searched when the cache lacks it."""
+    from faster_whisper_tpu_torch.bpe import BPETokenizer
+
+    repo = "openai/whisper-tiny" + ("" if multilingual else ".en")
+    snapshot = download_model(repo)
+    path = os.path.join(snapshot, "tokenizer.json")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"the model directory has no tokenizer.json and the cached {repo} "
+            f"snapshot {snapshot} has none either; faster_whisper_tpu_torch "
+            "downloads nothing"
+        )
+    return BPETokenizer.from_file(path)
+
+
+def _one_device(device_index, tensor_parallel: int) -> int:
+    """The one device index of ``device_index``; more than one device, or
+    ``tensor_parallel > 1``, is item 13."""
+    if isinstance(device_index, (list, tuple)):
+        if len(device_index) > 1:
+            raise NotImplementedError(
+                "device_index with more than one device is " + NOT_PORTED.format(13)
+            )
+        device_index = device_index[0]
+    if tensor_parallel > 1:
+        raise NotImplementedError("tensor_parallel > 1 is " + NOT_PORTED.format(13))
+    return device_index
 
 
 def _model_device(device, device_index: int) -> torch.device:
@@ -193,28 +249,22 @@ class WhisperModel:
         size name (tiny..large-v3, turbo, distil-*) or Hub repo id found in
         the local Hugging Face cache (``download_model``; nothing is
         downloaded).  ``files`` holds the directory's files in memory (name
-        -> bytes or file-like) instead.  The directory must hold
-        ``tokenizer.json``.  ``device`` is the card (``"auto"``, ``"cuda"``,
-        ``"cuda:N"``, with ``device_index``) or ``"cpu"``; without a card
-        the card raises.  ``compute_type``: default/float16/bfloat16 ->
-        bf16, float32, and the int8 types (W8A8 weights, int8 KV caches).
-        ``cpu_threads`` and ``num_workers`` are accepted and ignored."""
+        -> bytes or file-like) instead.  ``device`` is the card
+        (``"auto"``, ``"cuda"``, ``"cuda:N"``, with ``device_index``) or
+        ``"cpu"``; without a card the card raises.  ``compute_type``: default/float16/bfloat16 ->
+        bf16, float32, the int8 types (W8A8 weights, int8 KV caches) and
+        int4 (4-bit-range decoder weights and cross cache, with one scale
+        per group of ``int4_group_size`` input rows when it is given).
+        Without ``tokenizer.json`` the vocabulary of ``openai/whisper-tiny``
+        (``.en`` for an English-only model) is read from the local Hugging
+        Face cache.  ``cpu_threads`` and ``num_workers`` are accepted and
+        ignored."""
         from faster_whisper_tpu_torch.bpe import BPETokenizer
         from faster_whisper_tpu_torch.models.load import load_model, read_blob
 
         self.logger = get_logger()
-        if isinstance(device_index, (list, tuple)):
-            if len(device_index) > 1:
-                raise NotImplementedError(
-                    "device_index with more than one device is " + NOT_PORTED.format(13)
-                )
-            device_index = device_index[0]
-        if tensor_parallel > 1:
-            raise NotImplementedError("tensor_parallel > 1 is " + NOT_PORTED.format(13))
-        if int4_group_size is not None:
-            raise NotImplementedError("int4_group_size (int4) is " + NOT_PORTED.format(11))
         _check_compute_type(compute_type)
-        dev = _model_device(device, device_index)
+        dev = _model_device(device, _one_device(device_index, tensor_parallel))
         if cpu_threads:
             self.logger.warning(
                 "cpu_threads=%d is ignored: the model runs on its device and "
@@ -243,24 +293,22 @@ class WhisperModel:
                 use_auth_token=use_auth_token,
             )
 
+        params, config = load_model(
+            model_path, dtype=_COMPUTE_TYPES[compute_type], files=files, device=dev
+        )
+
         tokenizer_file = os.path.join(model_path, "tokenizer.json")
-        if tokenizer_bytes is not None:
+        if tokenizer_bytes:
             hf_tokenizer = BPETokenizer.from_buffer(read_blob(tokenizer_bytes))
         elif os.path.isfile(tokenizer_file):
             hf_tokenizer = BPETokenizer.from_file(tokenizer_file)
         else:
-            raise FileNotFoundError(
-                f"{model_path!r} has no tokenizer.json; the port reads the "
-                "vocabulary from the model's own files and downloads none"
-            )
+            hf_tokenizer = _fallback_tokenizer(config.is_multilingual)
 
-        params, config = load_model(
-            model_path, dtype=_COMPUTE_TYPES[compute_type], files=files, device=dev
-        )
         self._setup(
             params, config, hf_tokenizer,
             self._get_feature_kwargs(model_path, config, preprocessor_bytes),
-            compute_type, dev,
+            compute_type, dev, int4_group_size,
         )
 
     @classmethod
@@ -271,27 +319,36 @@ class WhisperModel:
         hf_tokenizer,
         feature_extractor_kwargs: Optional[dict] = None,
         compute_type: str = "default",
+        device_index: Union[int, List[int]] = 0,
+        tensor_parallel: int = 1,
+        int4_group_size: Optional[int] = None,
         device="cuda",
     ) -> "WhisperModel":
         """Build a WhisperModel from in-memory pieces: a float parameter
         tree (``models/load.py``), its config and a base tokenizer.  The
-        parameters are moved to ``device`` (default the card; without one
-        this raises) and cast to the compute type's dtype; the card's
-        kernels take bfloat16 and float32.  The int8 compute types then
-        quantize the cast tree (``ops/quant.py::quantize_params``) and
-        decode over int8 KV caches."""
+        parameters are moved to ``device`` (default the card, the one of
+        ``device_index``; without one this raises) and cast to the compute
+        type's dtype; the card's kernels take bfloat16 and float32.  The
+        int8 compute types then quantize the cast tree
+        (``ops/quant.py::quantize_params``) and decode over int8 KV caches;
+        int4 quantizes it with ``quantize_params_int4(group_size=
+        int4_group_size)``."""
         _check_compute_type(compute_type)
+        dev = _model_device(device, _one_device(device_index, tensor_parallel))
         self = cls.__new__(cls)
         self.logger = get_logger()
         self._setup(
-            params, config, hf_tokenizer, feature_extractor_kwargs, compute_type,
-            resolve_device(device),
+            params, config, hf_tokenizer, feature_extractor_kwargs, compute_type, dev,
+            int4_group_size,
         )
         return self
 
-    def _setup(self, params, config, hf_tokenizer, feature_extractor_kwargs, compute_type, dev):
+    def _setup(
+        self, params, config, hf_tokenizer, feature_extractor_kwargs, compute_type, dev,
+        int4_group_size=None,
+    ):
         from faster_whisper_tpu_torch.models.engine import WhisperEngine
-        from faster_whisper_tpu_torch.ops.quant import quantize_params
+        from faster_whisper_tpu_torch.ops.quant import quantize_params, quantize_params_int4
 
         dtype = _COMPUTE_TYPES[compute_type]
 
@@ -301,11 +358,14 @@ class WhisperModel:
             return tree.to(device=dev, dtype=dtype)
 
         self.hf_tokenizer = hf_tokenizer
-        kv_int8 = compute_type.startswith("int8")
+        int4 = compute_type == "int4"
+        kv_int8 = compute_type.startswith("int8") or int4
         params = move(params)
-        if kv_int8:
+        if int4:
+            params = quantize_params_int4(params, group_size=int4_group_size)
+        elif kv_int8:
             params = quantize_params(params)
-        self.model = WhisperEngine(params, config, hf_tokenizer, kv_int8=kv_int8)
+        self.model = WhisperEngine(params, config, hf_tokenizer, kv_int8=kv_int8, int4=int4)
         self.feat_kwargs = dict(feature_extractor_kwargs or {})
         self.feat_kwargs.setdefault("feature_size", config.n_mels)
         self.feature_extractor = FeatureExtractor(**self.feat_kwargs)
@@ -605,7 +665,7 @@ class WhisperModel:
         features: np.ndarray,
         tokenizer: Tokenizer,
         options: TranscriptionOptions,
-        log_progress: bool = False,
+        log_progress,
     ) -> Iterable[Segment]:
         """The sequential seek loop: one encode and one fallback ladder per
         30 s window, yielding segments as they are decoded.  With word

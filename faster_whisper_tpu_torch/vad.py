@@ -6,13 +6,17 @@ speech probabilities), ``collect_chunks`` (packs speech into <=max_duration
 buffers with offset/duration metadata) and ``SpeechTimestampsMap``
 (VAD-compressed clock -> original clock).  The probabilities come from
 ``models/silero.py`` on the device in one forward over the whole buffer;
-the state machine is host-side Python, as in the reference.
+the state machine runs on the host in native code
+(``hysteresis_native``, ``csrc/vad_sm.cpp``, the counterpart of the JAX
+package's ``vad_native.py``), whose plain version is the Python loop
+``_hysteresis_py``.
 
 Not ported (ROADMAP.md, Queue 1 item 6): the pipelined sliced upload
-(``upload_with_vad``) and the native C state machine (``vad_native.py``).
+(``upload_with_vad``).
 """
 
 import bisect
+import ctypes
 import functools
 
 from dataclasses import dataclass
@@ -90,7 +94,7 @@ def get_speech_timestamps(
     padded = F.pad(audio.to(torch.float32), (0, expected_windows * window - n_samples))
     probs = get_vad_model(audio.device)(padded).cpu().numpy()
 
-    speeches = _hysteresis_py(
+    speeches = hysteresis_native(
         probs, window, threshold, neg_threshold, min_speech_samples,
         max_speech_samples, min_silence_samples, min_silence_at_max_speech, n_samples,
     )
@@ -111,6 +115,37 @@ def get_speech_timestamps(
             speech["end"] = int(min(n_samples, speech["end"] + pad_samples))
 
     return speeches
+
+
+def hysteresis_native(
+    probs,
+    window: int,
+    threshold: float,
+    neg_threshold: float,
+    min_speech_samples: float,
+    max_speech_samples: float,
+    min_silence_samples: float,
+    min_silence_at_max_speech: float,
+    n_samples: int,
+) -> List[dict]:
+    """The hysteresis loop of ``_hysteresis_py`` in native code
+    (``csrc/vad_sm.cpp``, built with ``g++`` at first use; a failed build
+    raises).  Returns the same {"start", "end"} dicts."""
+    from faster_whisper_tpu_torch.ops import _build
+
+    if ctypes.sizeof(ctypes.c_long) != 8:
+        raise RuntimeError("vad_sm.cpp writes C longs; this platform's are not 64-bit")
+    lib = _build.load("vad_sm.cpp")
+    probs = np.ascontiguousarray(probs, dtype=np.float32)
+    n = len(probs)
+    max_out = n + 1
+    out = np.empty(2 * max_out, dtype=np.int64)
+    count = lib.fwt_vad_hysteresis(
+        probs.ctypes.data, n, float(threshold), float(neg_threshold), int(window),
+        float(min_speech_samples), float(max_speech_samples), float(min_silence_samples),
+        float(min_silence_at_max_speech), int(n_samples), out.ctypes.data, max_out,
+    )
+    return [{"start": int(out[2 * i]), "end": int(out[2 * i + 1])} for i in range(count)]
 
 
 def _hysteresis_py(

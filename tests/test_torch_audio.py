@@ -7,6 +7,8 @@ and the same ``scipy.signal.resample_poly``."""
 
 import io
 import os
+import re
+import subprocess
 
 import numpy as np
 import pytest
@@ -112,10 +114,140 @@ def test_wav_matches_jax(tmp_path, rate, bits, fmt, channels, split_stereo):
     assert ours.dtype == np.float32 and abs(len(ours) - 0.6 * 16000) <= 1
 
 
-def test_other_containers_are_refused():
-    """MP3, M4A, OGG and the rest need FFmpeg's libraries: refused, naming
-    the ROADMAP.md item, with no silent fallback."""
+def test_other_containers_are_refused(monkeypatch):
+    """With no backend for a compressed container (the libav shim fails to
+    build, no ffmpeg CLI), ``decode_audio`` raises the JAX package's
+    ``RuntimeError``, and names the shim's build error."""
+    from faster_whisper_tpu_torch import media_native
+    from faster_whisper_tpu_torch.ops import _build
+
     with open(os.path.join(ROOT, "tests", "data", "jfk.ogg"), "rb") as f:
         data = f.read()
-    with pytest.raises(NotImplementedError, match=r"\(ROADMAP\.md, Queue 1 item 10\)"):
+
+    def no_libav(source):
+        raise RuntimeError(f"native build failed:\n{source}: libavformat/avformat.h: No such file")
+
+    monkeypatch.setattr(_build, "load", no_libav)
+    monkeypatch.setattr(media_native, "_build_error", None)
+    monkeypatch.setattr("faster_whisper_tpu_torch.audio._have_ffmpeg", lambda: False)
+    with pytest.raises(RuntimeError, match=re.escape(JAX_NO_BACKEND)) as e:
         decode_audio(io.BytesIO(data))
+    assert "media_decoder.cpp" in str(e.value) and "avformat.h" in str(e.value)
+
+
+JAX_NO_BACKEND = (
+    "decode_audio: the input is not WAV/FLAC and no decode backend is available for "
+    "compressed formats (native libav shim failed to build/decode, no PyAV, no ffmpeg CLI)."
+)
+CONTAINERS = ("jfk.m4a", "jfk.ogg", "jfk.opus")
+
+
+@pytest.fixture(scope="module")
+def libav():
+    """Skips where FFmpeg's headers or libraries are missing (the shim does
+    not build)."""
+    from faster_whisper_tpu_torch import media_native
+
+    if media_native._load() is None:
+        pytest.skip(f"no libav on this machine: {media_native._build_error}")
+
+
+@pytest.mark.parametrize("name", CONTAINERS)
+@pytest.mark.parametrize("source", ["path", "file-object"])
+def test_containers_decode_bit_equal_to_the_jax_libav_shim(libav, name, source):
+    """M4A (AAC), OGG (Vorbis) and Opus through the port's libav shim: the
+    float32 PCM of the JAX package's ``decode_media_native``, bit for bit,
+    mono and split into the two channels."""
+    from faster_whisper_tpu.media_native import decode_media_native as jax_decode_media_native
+
+    path = os.path.join(ROOT, "tests", "data", name)
+    with open(path, "rb") as f:
+        data = f.read()
+    for split in (False, True):
+        ours = decode_audio(path if source == "path" else io.BytesIO(data), split_stereo=split)
+        ref = jax_decode_media_native(data, 16000, split)
+        assert ref is not None and ref.dtype == np.float32
+        if split:
+            assert all(c.dtype == np.float32 for c in ours)
+            np.testing.assert_array_equal(ours[0], ref[0::2])
+            np.testing.assert_array_equal(ours[1], ref[1::2])
+            assert len(ours[0]) == len(ref) // 2 > 16000
+        else:
+            assert ours.dtype == np.float32 and len(ours) > 16000
+            np.testing.assert_array_equal(ours, ref)
+            np.testing.assert_array_equal(ours, jax_decode_audio(path, sampling_rate=16000))
+
+
+@pytest.mark.parametrize("split_stereo", [False, True], ids=["mono", "stereo"])
+@pytest.mark.parametrize("source", ["path", "file-object"])
+def test_ffmpeg_command_line_is_the_jax_packages(monkeypatch, split_stereo, source):
+    """The ``ffmpeg`` fallback: the same argv and the same standard input
+    in both packages (``subprocess.run`` replaced by a recorder that returns
+    fixed s16le PCM), and the same samples."""
+    import faster_whisper_tpu.audio as jax_audio
+    import faster_whisper_tpu_torch.audio as port_audio
+
+    pcm = (np.arange(-1600, 1600, dtype=np.int16) * 7).tobytes()
+    calls = []
+
+    def run(cmd, input=None, capture_output=False, check=False):
+        calls.append((list(cmd), input, capture_output, check))
+        return subprocess.CompletedProcess(cmd, 0, stdout=pcm, stderr=b"")
+
+    path = os.path.join(ROOT, "tests", "data", "jfk.ogg")
+    outs = []
+    for module in (jax_audio, port_audio):
+        monkeypatch.setattr(module.subprocess, "run", run)
+        if source == "path":
+            outs.append(module._decode_audio_ffmpeg(path, 22050, split_stereo))
+        else:
+            # the whole chain: the shim declines, the CLI is on PATH
+            monkeypatch.setattr(module, "_have_ffmpeg", lambda: True)
+            if module is jax_audio:
+                monkeypatch.setattr("faster_whisper_tpu.media_native.decode_media_native", lambda *a: None)
+            else:
+                monkeypatch.setattr("faster_whisper_tpu_torch.media_native.decode_media_native",
+                                    lambda *a: (None, "declined"))
+            with open(path, "rb") as f:
+                outs.append(module.decode_audio(f, sampling_rate=22050, split_stereo=split_stereo))
+    assert len(calls) == 2 and calls[0] == calls[1]
+    cmd = calls[0][0]
+    assert cmd[0] == "ffmpeg" and cmd[cmd.index("-ac") + 1] == ("2" if split_stereo else "1")
+    assert cmd[cmd.index("-i") + 1] == (path if source == "path" else "pipe:0")
+    ref, ours = outs
+    for a, b in zip(ref if split_stereo else [ref], ours if split_stereo else [ours]):
+        assert a.dtype == b.dtype == np.float32
+        np.testing.assert_array_equal(a, b)
+
+
+def test_the_default_build_leaves_out_the_libav_shim(tmp_path, monkeypatch):
+    """``_build.build()`` with no argument builds every source but the
+    libav shim (the card's machine lacks FFmpeg's headers), the VAD's state
+    machine included; the shim, built on its own, links FFmpeg's libraries
+    after its source."""
+    from faster_whisper_tpu_torch.ops import _build
+
+    commands = []
+
+    class FakeCompiler:
+        def __init__(self, cmd, **kwargs):
+            commands.append(cmd)
+            open(cmd[cmd.index("-o") + 1], "wb").close()
+            self.returncode = 0
+
+        def communicate(self):
+            return "", None
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.subprocess, "Popen", FakeCompiler)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build, "_gxx", lambda: "g++")
+    logs = _build.build()
+    built = {os.path.basename(c[c.index("-o") + 2]) for c in commands}
+    assert built == set(logs) == set(_build.SIGNATURES) - {"media_decoder.cpp"}
+    assert "vad_sm.cpp" in built
+    commands.clear()
+    _build.build(["media_decoder.cpp"])
+    (cmd,) = commands
+    assert cmd[0] == "g++" and cmd[-4:] == ["-lavformat", "-lavcodec", "-lavutil", "-lswresample"]
+    assert cmd[-5].endswith("csrc/media_decoder.cpp")

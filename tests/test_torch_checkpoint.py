@@ -410,27 +410,81 @@ def test_vocabulary_size_decides_multilingual(n_vocab, tmp_path):
     "no-device", "cuda", "cuda:1", "device-list", "tensor-parallel", "int4", "int4-group",
     "no-tokenizer", "unknown-device",
 ])
-def test_arguments_outside_the_port_raise(port_weights, cfg, tokenizer, tmp_path, case):
+def test_arguments_outside_the_port_raise(port_weights, cfg, tokenizer, tmp_path, monkeypatch, case):
     """The card raises without one (no fallback to the host); more than
-    one device names item 13 and int4 item 11; a directory without
-    tokenizer.json raises, since the port downloads no vocabulary."""
+    one device names item 13.  ``compute_type="int4"`` loads, with and
+    without ``int4_group_size``: the JAX package's int4 tree of the same
+    directory, code for code.  A directory without tokenizer.json raises
+    when the local cache lacks ``openai/whisper-tiny.en`` too (the micro
+    vocabulary is English-only), naming where it looked."""
     path = _write_dir(tmp_path / "model", "float16", port_weights, cfg, tokenizer)
+    if case in ("int4", "int4-group"):
+        group = None if case == "int4" else 16
+        pm = WhisperModel(path, device="cpu", compute_type="int4", int4_group_size=group)
+        jm = JaxWhisperModel(path, compute_type="int4", int4_group_size=group)
+        assert pm.model.int4 and pm.model.kv_int8 and jm.model.int4
+        ref, ours = jm.model.params["decoder"], pm.model.params["decoder"]
+        for sec, name in (("self_attn", "wq"), ("cross_attn", "wv"), ("mlp", "w2")):
+            j, t = ref["layers"][sec][name], ours["layers"][sec][name]
+            assert np.array_equal(t.q.numpy(), np.asarray(j.q)), (sec, name)
+            assert np.array_equal(t.s.numpy(), np.asarray(j.s)), (sec, name)
+            assert t.s.dim() == t.q.dim() - (group is None) and int(t.q.abs().max()) <= 7
+        v = ref["logits_w"].q.shape[-1]
+        assert np.array_equal(ours["logits_w"].q[:, :v].numpy(), np.asarray(ref["logits_w"].q))
+        return
     expect = {
         "no-device": (RuntimeError, dict(), "CUDA card"),
         "cuda": (RuntimeError, dict(device="cuda", device_index=0), "CUDA card"),
         "cuda:1": (RuntimeError, dict(device="cuda:1"), "CUDA card"),
         "device-list": (NotImplementedError, dict(device="cpu", device_index=[0, 1]), "item 13"),
         "tensor-parallel": (NotImplementedError, dict(device="cpu", tensor_parallel=2), "item 13"),
-        "int4": (NotImplementedError, dict(device="cpu", compute_type="int4"), "item 11"),
-        "int4-group": (NotImplementedError, dict(device="cpu", int4_group_size=64), "item 11"),
-        "no-tokenizer": (FileNotFoundError, dict(device="cpu"), "no tokenizer.json"),
+        "no-tokenizer": (FileNotFoundError, dict(device="cpu"), "downloads nothing"),
         "unknown-device": (ValueError, dict(device="tpu"), "unsupported device"),
     }
     error, kwargs, match = expect[case]
     if case == "no-tokenizer":
         os.remove(os.path.join(path, "tokenizer.json"))
-    with pytest.raises(error, match=match):
+        monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "empty-cache"))
+    with pytest.raises(error, match=match) as e:
         WhisperModel(path, **kwargs)
+    if case == "no-tokenizer":
+        assert str(tmp_path / "empty-cache" / "models--openai--whisper-tiny.en") in str(e.value)
+
+
+@pytest.mark.parametrize("source", ["directory", "empty-bytes"])
+def test_a_model_without_tokenizer_json_reads_the_cached_whisper_tiny(
+    port_weights, cfg, tokenizer, tmp_path, monkeypatch, source
+):
+    """The reference's fallback, offline: without tokenizer.json (or with
+    empty bytes for it, which the JAX package also passes over) the
+    vocabulary is ``openai/whisper-tiny.en``'s for an English-only model,
+    ``openai/whisper-tiny``'s for a multilingual one, from the local cache;
+    a cached snapshot without the file raises."""
+    from faster_whisper_tpu_torch.bpe import BPETokenizer
+    from faster_whisper_tpu_torch.transcribe import _fallback_tokenizer
+
+    path = _write_dir(tmp_path / "model", "float16", port_weights, cfg, tokenizer)
+    os.remove(os.path.join(path, "tokenizer.json"))
+    cache = tmp_path / "hub"
+    cached = testing.tokenizer_json(BASE_VOCAB, MERGES[:3])
+    _cache_tree(str(cache), "openai/whisper-tiny.en", {"tokenizer.json": cached.encode()})
+    monkeypatch.setenv("HF_HUB_CACHE", str(cache))
+    if source == "directory":
+        pm = WhisperModel(path, device="cpu", compute_type="float32")
+    else:
+        files = dict(_dir_files(path), **{"tokenizer.json": b""})
+        pm = WhisperModel("in-memory", files=files, device="cpu", compute_type="float32")
+    assert not pm.model.is_multilingual
+    assert pm.hf_tokenizer.get_vocab_size() == N_VOCAB
+    # the cached vocabulary merges " the" only; the model's own, removed, " and" too
+    want = BPETokenizer.from_str(cached).encode(" the and").ids
+    assert pm.hf_tokenizer.encode(" the and").ids == want == [258, 220, 64, 77, 67]
+    assert BPETokenizer.from_str(tokenizer).encode(" the and").ids != want
+    with pytest.raises(FileNotFoundError, match="models--openai--whisper-tiny"):
+        _fallback_tokenizer(True)
+    _cache_tree(str(cache), "openai/whisper-tiny", {"config.json": b"{}"})
+    with pytest.raises(FileNotFoundError, match="has none either"):
+        _fallback_tokenizer(True)
 
 
 def test_ignored_arguments_warn(port_weights, cfg, tokenizer, tmp_path, caplog):

@@ -74,7 +74,7 @@ def test_cross_attention_kernel_matches_plain_version(card):
     worst = chip_smoke.check_cross_attention(
         batches=(1, 8), Ts=(1, 100, 1500, 1501), Ks=(1, 5, 16), L=2
     )
-    assert set(worst) == {"bf16", "int8", "f32", "int8 f32"}
+    assert set(worst) == {"bf16", "int8", "f32", "int8 f32", "int8 qmax7", "int8 qmax7 f32"}
 
 
 def test_small_model_on_the_card_matches_the_cpu_at_every_compute_type(card):
@@ -94,6 +94,25 @@ def test_int8_dense_on_the_card_matches_the_cpu(card):
         cpu = int8_dense(x, w, out_dtype=torch.float32)
         w_card = type(w)(w.q.cuda(), w.s.cuda())
         card = int8_dense(x.cuda(), w_card, out_dtype=torch.float32).cpu()
+        torch.testing.assert_close(card, cpu, rtol=1e-6, atol=1e-6)
+
+
+def test_grouped_int8_dense_on_the_card_matches_the_cpu(card):
+    """int4's group-wise product on the card (one torch._int_mm per group
+    of input rows; rows padded to 17, and to a multiple of 32 for groups
+    below 128 rows) against the CPU's, at the beam grid's 5 rows, the
+    batched pipeline's 40 and an encoder window's 1500 and 3000, over 1280
+    and 5120 input rows in groups of 32, 64 and 128: exact int32 partials,
+    the float32 sum over the groups within 1e-6."""
+    from faster_whisper_tpu_torch.ops.quant import int8_dense, quantize_weight
+
+    g = torch.Generator().manual_seed(1)
+    for rows, n_in, group in ((5, 1280, 128), (40, 5120, 128), (5, 1280, 64), (40, 1280, 32),
+                              (1500, 1280, 64), (3000, 256, 64), (1500, 5120, 128)):
+        x = torch.randn((rows, n_in), generator=g)
+        w = quantize_weight(0.02 * torch.randn((n_in, 1280), generator=g), qmax=7, group_size=group)
+        cpu = int8_dense(x, w, out_dtype=torch.float32)
+        card = int8_dense(x.cuda(), type(w)(w.q.cuda(), w.s.cuda()), out_dtype=torch.float32).cpu()
         torch.testing.assert_close(card, cpu, rtol=1e-6, atol=1e-6)
 
 

@@ -12,6 +12,7 @@ compile-cache entry takes part."""
 
 import io
 import os
+import re
 
 import numpy as np
 import pytest
@@ -145,23 +146,36 @@ def test_fallback_ladder_samples_and_yields_well_formed_segments(models):
     [("int4", 11), ("checkpoint", 10)],
 )
 def test_options_outside_the_slice_raise(weights, option, item, tmp_path, monkeypatch):
-    """Each refusal names its own ROADMAP.md Queue 1 item.  A model name
-    that is not in the local Hugging Face cache raises that the port
-    downloads nothing."""
+    """Items 11 and 10 are ported: ``compute_type="int4"`` builds and
+    transcribes, and bytes that no backend decodes raise the JAX package's
+    ``RuntimeError`` (here the libav shim cannot decode them and there is
+    no ffmpeg CLI), not a refusal naming the item.  A model name that is
+    not in the local Hugging Face cache raises that the port downloads
+    nothing."""
     pm = WhisperModel.from_parts(
         params_from_jax(jax.tree.map(np.asarray, weights), device="cpu"),
         tiny_test_config(), build_synthetic_tokenizer(), compute_type="float32", device="cpu",
     )
-    match = rf"\(ROADMAP\.md, Queue 1 item {item}\)"
     if option == "int4":
-        with pytest.raises(NotImplementedError, match=match):
-            WhisperModel.from_parts(
-                pm.model.params, tiny_test_config(), build_synthetic_tokenizer(),
-                compute_type="int4", device="cpu",
-            )
-    else:  # containers other than WAV and FLAC; a checkpoint not on this machine
-        with pytest.raises(NotImplementedError, match=match):
-            pm.transcribe(io.BytesIO(b"ID3\x04" + bytes(60)))
+        m4 = WhisperModel.from_parts(
+            pm.model.params, tiny_test_config(), build_synthetic_tokenizer(),
+            compute_type="int4", device="cpu",
+        )
+        assert m4.model.int4 and m4.model.params["decoder"]["token_embed"].dtype == torch.bfloat16
+        segments, info = m4.transcribe(synth_audio(10.0, seed=3), language="en", max_new_tokens=8)
+        assert all(0.0 <= s.start <= s.end for s in segments)
+        assert info.duration == pytest.approx(10.0)
+    else:  # bytes no backend decodes; a checkpoint not on this machine
+        # no ffmpeg CLI in either package
+        monkeypatch.setattr("faster_whisper_tpu.audio._have_ffmpeg", lambda: False)
+        monkeypatch.setattr("faster_whisper_tpu_torch.audio._have_ffmpeg", lambda: False)
+        data = b"ID3\x04" + bytes(60)
+        with pytest.raises(RuntimeError) as ref:
+            jax_decode_audio(io.BytesIO(data))
+        with pytest.raises(RuntimeError, match=re.escape(str(ref.value))) as ours:
+            pm.transcribe(io.BytesIO(data))
+        assert "could not decode" in str(ours.value)
+        assert f"item {item}" not in str(ours.value)
         monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path))
         with pytest.raises(FileNotFoundError, match="downloads nothing"):
             WhisperModel("large-v3", device="cpu")

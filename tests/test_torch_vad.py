@@ -136,3 +136,63 @@ def test_speech_timestamps_map_and_restore_match_jax(chunks):
     ours = list(restore_speech_timestamps(segments(Segment), chunks, SR))
     assert [(s.start, s.end) for s in ours] == [(s.start, s.end) for s in ref]
     assert len(ours) == len(spans) > 10
+
+
+# ---------------------------------------------------------------------------
+# The native state machine (csrc/vad_sm.cpp) against its plain version
+# ---------------------------------------------------------------------------
+
+# (threshold, neg_threshold, min_speech, max_speech, min_silence, silence at
+# max speech) in samples: the option corners of the JAX package's
+# tests/test_vad.py::test_native_hysteresis_matches_python
+HYSTERESIS_CORNERS = [
+    (0.5, 0.35, 4000.0, float("inf"), 2000.0, 1568.0),
+    (0.5, 0.35, 0.0, 16000 * 4.0, 32000.0, 1568.0),
+    (0.3, 0.15, 250.0, 16000 * 2.5, 1600.0, 1568.0),
+    (0.8, 0.65, 0.0, 16000 * 1.0, 500.0, 1568.0),
+]
+
+
+@pytest.mark.parametrize("corner", HYSTERESIS_CORNERS, ids=["defaults", "max-4s", "low", "max-1s"])
+def test_native_hysteresis_matches_the_python_loop(corner):
+    """``hysteresis_native`` equals ``_hysteresis_py`` (and the JAX
+    package's Python loop) on random slow-moving probability streams."""
+    n = 4000
+    for seed in range(6):
+        r = np.random.default_rng(seed)
+        probs = np.clip(np.cumsum(r.normal(0, 0.08, n)) % 2, 0, None)
+        probs = np.abs(1 - np.abs(1 - probs)).astype(np.float32)
+        args = (512, *corner, n * 512)
+        py = pvad._hysteresis_py(probs, *args)
+        assert pvad.hysteresis_native(probs, *args) == py == jvad._hysteresis_py(probs, *args), seed
+
+
+def test_native_hysteresis_threshold_boundaries():
+    """Probabilities exactly at the float32-rounded thresholds: the Python
+    loop compares a float32 probability with the threshold in float32
+    (numpy 2), and so does the native loop."""
+    probs = np.array(
+        [0.9, 0.9, np.float32(0.35), 0.2, 0.2, 0.9, np.float32(0.5), 0.34, 0.1, 0.1, 0.9, 0.9],
+        dtype=np.float32,
+    )
+    args = (512, 0.5, 0.35, 0.0, float("inf"), 1024.0, 1568.0, len(probs) * 512)
+    assert pvad.hysteresis_native(probs, *args) == pvad._hysteresis_py(probs, *args)
+    assert pvad.hysteresis_native(probs[:0], *args[:-1], 0) == []
+
+
+def test_get_speech_timestamps_runs_the_native_state_machine(speech, monkeypatch):
+    """Every ``get_speech_timestamps`` call goes through
+    ``hysteresis_native``, and its speech equals the Python loop's."""
+    calls = []
+    native = pvad.hysteresis_native
+
+    def counted(probs, *args):
+        out = native(probs, *args)
+        assert out == pvad._hysteresis_py(probs, *args)
+        calls.append(len(out))
+        return out
+
+    monkeypatch.setattr(pvad, "hysteresis_native", counted)
+    for opts in (pvad.VadOptions(), pvad.VadOptions(max_speech_duration_s=2.0, min_silence_duration_ms=160)):
+        assert pvad.get_speech_timestamps(speech, opts, device="cpu")
+    assert len(calls) == 2 and all(calls)
