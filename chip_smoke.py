@@ -85,7 +85,30 @@ Phases, each printing its own line with its seconds:
     native one's; the words are held to ``check_words``.  Then the small
     float32 model with words on the card against the CPU, sequential and
     through the pipeline: equal words and times, probabilities within
-    WORD_PROB_TOL.
+    WORD_PROB_TOL;
+11. serving, over the int8 model of request i: ``warm_parallel``
+    (durations 30 and 300 s, batch 8, beam 5, 128 new tokens) with no
+    failures; ``server.make_server`` on 127.0.0.1 with its
+    ``ContinuousBatcher``, ``/healthz``; ``docker/jfk.flac`` tiled to 60 s
+    as a WAV upload, sent as 4 multipart requests (en, beam 5, batch 8,
+    128 new tokens) together with one SSE (``stream=true``) and one
+    sequential (``batch_size=0``) request: every reply 200 with
+    well-formed segments, fewer batches than chunks, and ``/metrics``
+    reporting the batcher's two counters and 6 ok requests; then the 4
+    batched requests again, alone, whose launch counts (set to 0 just
+    before, read just after: only the batcher's thread launches) follow
+    phase 7's rule, with each request's latency, audio seconds per wall
+    second, the batcher thread's idle time and peak memory, against the
+    same 4 one after another through the pipeline without the scheduler
+    (a scheduled chunk's tokens must equal the unscheduled one's where
+    their batch buckets are equal; elsewhere the count of differing
+    tokens and the first differing step are printed); at float32 with
+    cuDNN's TF32 at PyTorch's default, an encode on one thread while
+    another sits in ``exact_float32`` must equal the encode alone, and a
+    sequential and a batched request served together must equal each
+    served alone, launching on one stream; last the CLI, ``python -m
+    faster_whisper_tpu_torch`` on the 60 s WAV with the int8 CT2
+    directory of request k, must exit 0 and print well-formed SRT.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as the last line
@@ -94,6 +117,8 @@ Any failure raises and exits nonzero before that line.
 """
 
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1247,14 +1272,14 @@ def check_small_hf_against_cpu(root, card):
         raise AssertionError("the HF directory's model on the card differs from the CPU's")
 
 
-def run_checkpoints(speech, card):
-    """Phase 9: write the large-v3-turbo CT2 directories, then requests j
-    (float16 model.bin, defaults) and k (int8 model.bin, int8, through the
-    pipeline), the small HF directory and the native FLAC decode.  Returns
-    the launch counts of j and k, each set to 0 just before its run."""
+def run_checkpoints(speech, card, root):
+    """Phase 9: write the large-v3-turbo CT2 directories under ``root``
+    (which the caller deletes), then requests j (float16 model.bin,
+    defaults) and k (int8 model.bin, int8, through the pipeline), the small
+    HF directory and the native FLAC decode.  Returns the launch counts of
+    j and k, each set to 0 just before its run, and the int8 directory."""
     import dataclasses
     import os
-    import shutil
 
     from faster_whisper_tpu_torch.bpe import BPETokenizer
     from faster_whisper_tpu_torch.models.config import CONFIGS
@@ -1262,83 +1287,78 @@ def run_checkpoints(speech, card):
     from faster_whisper_tpu_torch.testing import tokenizer_json, word_merges, write_ct2_dir
     from faster_whisper_tpu_torch.transcribe import WhisperModel
 
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", f"checkpoints_{os.getpid()}")
-    os.makedirs(root)
-    try:
-        cfg = dataclasses.replace(CONFIGS["large-v3-turbo"], alignment_heads=ALIGNMENT_HEADS)
-        tok_text = tokenizer_json(50257, word_merges(MERGED_WORDS))
-        params = random_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
-        dirs = {"float16": os.path.join(root, "ct2-float16"), "int8": os.path.join(root, "ct2-int8")}
-        for weights, d in (("float16", dirs["float16"]), ("int8_float16", dirs["int8"])):
-            sec = _synced_seconds(lambda: write_ct2_dir(d, params, cfg, tok_text, weights=weights))[1]
-            print(f"CT2 directory, {weights} model.bin: {_dir_bytes(d)} bytes, written in {sec:.3f} s "
-                  f"on the host of {card}")
-        # what a float16 model.bin holds, at the default compute type
-        rounded = {}
+    cfg = dataclasses.replace(CONFIGS["large-v3-turbo"], alignment_heads=ALIGNMENT_HEADS)
+    tok_text = tokenizer_json(50257, word_merges(MERGED_WORDS))
+    params = random_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    dirs = {"float16": os.path.join(root, "ct2-float16"), "int8": os.path.join(root, "ct2-int8")}
+    for weights, d in (("float16", dirs["float16"]), ("int8_float16", dirs["int8"])):
+        sec = _synced_seconds(lambda: write_ct2_dir(d, params, cfg, tok_text, weights=weights))[1]
+        print(f"CT2 directory, {weights} model.bin: {_dir_bytes(d)} bytes, written in {sec:.3f} s "
+              f"on the host of {card}")
+    # what a float16 model.bin holds, at the default compute type
+    rounded = {}
 
-        def round_f16(tree, out):
-            for k, v in tree.items():
-                if isinstance(v, dict):
-                    round_f16(v, out.setdefault(k, {}))
-                else:
-                    out[k] = v.to(torch.float16).to(torch.bfloat16)
+    def round_f16(tree, out):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                round_f16(v, out.setdefault(k, {}))
+            else:
+                out[k] = v.to(torch.float16).to(torch.bfloat16)
 
-        round_f16(params, rounded)
-        del params
+    round_f16(params, rounded)
+    del params
 
-        model, sec = _synced_seconds(lambda: WhisperModel(dirs["float16"]))
-        cfg_read = model.model.config
-        print(f"request j: WhisperModel(CT2 float16 directory) loaded in {sec:.3f} s on {card}: "
-              f"{cfg_read.n_audio_layer}/{cfg_read.n_text_layer} layers, vocab {cfg_read.n_vocab}, "
-              f"tokenizer vocab {model.hf_tokenizer.get_vocab_size()}, alignment heads "
-              f"{cfg_read.alignment_heads}")
-        if dataclasses.replace(cfg_read, name=cfg.name) != cfg:
-            raise AssertionError(f"CT2 config read back as {cfg_read}")
+    model, sec = _synced_seconds(lambda: WhisperModel(dirs["float16"]))
+    cfg_read = model.model.config
+    print(f"request j: WhisperModel(CT2 float16 directory) loaded in {sec:.3f} s on {card}: "
+          f"{cfg_read.n_audio_layer}/{cfg_read.n_text_layer} layers, vocab {cfg_read.n_vocab}, "
+          f"tokenizer vocab {model.hf_tokenizer.get_vocab_size()}, alignment heads "
+          f"{cfg_read.alignment_heads}")
+    if dataclasses.replace(cfg_read, name=cfg.name) != cfg:
+        raise AssertionError(f"CT2 config read back as {cfg_read}")
 
-        def leaves(tree, prefix=""):
-            for k, v in tree.items():
-                yield from leaves(v, prefix + k + "/") if isinstance(v, dict) else [(prefix + k, v)]
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            yield from leaves(v, prefix + k + "/") if isinstance(v, dict) else [(prefix + k, v)]
 
-        loaded = dict(leaves(model.model.params))
-        diff = [k for k, v in leaves(rounded) if not torch.equal(loaded.pop(k), v)]
-        if diff or loaded:
-            raise AssertionError(f"loaded weights differ from the float16-rounded ones: {diff}, {list(loaded)}")
-        clip = synth_audio(20.0, seed=2)
-        def request_j():
-            segments, info = model.transcribe(clip, beam_size=5)
-            return list(segments), info
+    loaded = dict(leaves(model.model.params))
+    diff = [k for k, v in leaves(rounded) if not torch.equal(loaded.pop(k), v)]
+    if diff or loaded:
+        raise AssertionError(f"loaded weights differ from the float16-rounded ones: {diff}, {list(loaded)}")
+    clip = synth_audio(20.0, seed=2)
+    def request_j():
+        segments, info = model.transcribe(clip, beam_size=5)
+        return list(segments), info
 
-        reset_counts()
-        (segments, info), sec = _synced_seconds(request_j)
-        counts = {"j": read_counts()}
-        check_segments(segments, info, len(clip) / 16000, cfg.n_vocab)
-        got = _segment_keys(segments)
-        print(f"request j: CT2 float16 model.bin, defaults, 20 s, beam 5: {len(got)} segments, "
-              f"{sum(len(k[4]) for k in got)} tokens, {sec:.3f} s on {card}")
-        print(f"main path counts, j: {counts['j']}")
-        check_counts(counts["j"], per_step=("k1", "k4_bf16"), per_encode="k3", cfg=cfg)
-        del model
-        ref = WhisperModel.from_parts(rounded, cfg_read, BPETokenizer.from_str(tok_text))
-        want = _segment_keys(ref.transcribe(clip, beam_size=5)[0])
-        del ref, rounded
-        print(f"request j against from_parts on the float16-rounded weights: equal segments and "
-              f"tokens: {got == want}")
-        if got != want:
-            raise AssertionError("the loaded CT2 model's segments differ from from_parts on the same weights")
+    reset_counts()
+    (segments, info), sec = _synced_seconds(request_j)
+    counts = {"j": read_counts()}
+    check_segments(segments, info, len(clip) / 16000, cfg.n_vocab)
+    got = _segment_keys(segments)
+    print(f"request j: CT2 float16 model.bin, defaults, 20 s, beam 5: {len(got)} segments, "
+          f"{sum(len(k[4]) for k in got)} tokens, {sec:.3f} s on {card}")
+    print(f"main path counts, j: {counts['j']}")
+    check_counts(counts["j"], per_step=("k1", "k4_bf16"), per_encode="k3", cfg=cfg)
+    del model
+    ref = WhisperModel.from_parts(rounded, cfg_read, BPETokenizer.from_str(tok_text))
+    want = _segment_keys(ref.transcribe(clip, beam_size=5)[0])
+    del ref, rounded
+    print(f"request j against from_parts on the float16-rounded weights: equal segments and "
+          f"tokens: {got == want}")
+    if got != want:
+        raise AssertionError("the loaded CT2 model's segments differ from from_parts on the same weights")
 
-        model, sec = _synced_seconds(lambda: WhisperModel(dirs["int8"], compute_type="int8"))
-        print(f"request k: WhisperModel(CT2 int8 directory, compute_type='int8') loaded in "
-              f"{sec:.3f} s on {card}")
-        counts["k"] = run_batched(model, "k: CT2 int8 model.bin, int8", speech, cfg)[0]
-        check_counts(counts["k"], per_step=("k2", "k4_int8"), per_encode="k3", cfg=cfg)
-        del model
-        torch.cuda.empty_cache()
+    model, sec = _synced_seconds(lambda: WhisperModel(dirs["int8"], compute_type="int8"))
+    print(f"request k: WhisperModel(CT2 int8 directory, compute_type='int8') loaded in "
+          f"{sec:.3f} s on {card}")
+    counts["k"] = run_batched(model, "k: CT2 int8 model.bin, int8", speech, cfg)[0]
+    check_counts(counts["k"], per_step=("k2", "k4_int8"), per_encode="k3", cfg=cfg)
+    del model
+    torch.cuda.empty_cache()
 
-        check_small_hf_against_cpu(root, card)
-        check_native_flac(card)
-        return counts
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    check_small_hf_against_cpu(root, card)
+    check_native_flac(card)
+    return counts, dirs["int8"]
 
 
 # ---------------------------------------------------------------------------
@@ -1592,6 +1612,440 @@ def run_word_timestamps(later, jfk, speech, speech_chunks, i_counts, card):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: serving
+# ---------------------------------------------------------------------------
+
+
+def wav_bytes(audio: np.ndarray) -> bytes:
+    """16 kHz float32 samples as a mono 16-bit WAV file."""
+    import io
+    import wave
+
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(np.clip(np.round(audio * 32768.0), -32768, 32767).astype(np.int16).tobytes())
+    return buf.getvalue()
+
+
+def post_multipart(url, payload, fields, timeout=600):
+    """POST ``payload`` as the ``file`` part with ``fields`` to the
+    transcription route; returns (status, body, seconds)."""
+    import urllib.request
+
+    boundary = "fwtsmoke"
+    parts = [f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'.encode()
+             for k, v in fields.items()]
+    parts.append(f'--{boundary}\r\nContent-Disposition: form-data; name="file"; filename="a.wav"\r\n'
+                 f"Content-Type: audio/wav\r\n\r\n".encode() + payload + b"\r\n")
+    parts.append(f"--{boundary}--\r\n".encode())
+    req = urllib.request.Request(
+        url + "/v1/audio/transcriptions", data=b"".join(parts),
+        headers={"Content-Type": f"multipart/form-data; boundary={boundary}"},
+    )
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.read(), time.perf_counter() - t0
+
+
+def parse_sse(raw: bytes):
+    events = []
+    for block in raw.decode().split("\n\n"):
+        block = block.strip()
+        if block:
+            if not block.startswith("data: "):
+                raise AssertionError(f"malformed SSE block: {block[:200]!r}")
+            data = block[len("data: "):]
+            events.append(data if data == "[DONE]" else json.loads(data))
+    return events
+
+
+def served_segments(name, status, body, stream, duration, n_vocab):
+    """The segments of one served response, held to ``check_segments``: a
+    verbose_json body, or with ``stream`` the SSE events (one
+    transcript.segment each, then transcript.text.done and [DONE])."""
+    from types import SimpleNamespace
+
+    if status != 200:
+        raise AssertionError(f"request {name}: HTTP {status}")
+    if stream:
+        events = parse_sse(body)
+        if events[-1] != "[DONE]" or events[-2]["type"] != "transcript.text.done":
+            raise AssertionError(f"request {name}: the SSE stream ends with {events[-2:]}")
+        if any(e["type"] != "transcript.segment" for e in events[:-2]):
+            raise AssertionError(f"request {name}: unexpected SSE events {events[:-2]}")
+        out, segs = events[-2], [e["segment"] for e in events[:-2]]
+    else:
+        out = json.loads(body)
+        segs = out["segments"]
+    if out["text"] != "".join(s["text"] for s in segs).strip():
+        raise AssertionError(f"request {name}: text is not the segments' texts")
+    segments = [SimpleNamespace(**{k: s[k] for k in (
+        "id", "seek", "start", "end", "text", "tokens", "avg_logprob", "compression_ratio",
+        "no_speech_prob")}) for s in segs]
+    check_segments(segments, SimpleNamespace(duration=out["duration"]), duration, n_vocab)
+    if not segments:
+        raise AssertionError(f"request {name}: no segments")
+    return segments
+
+
+def scrape_metrics(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+        if r.status != 200:
+            raise AssertionError(f"/metrics: HTTP {r.status}")
+        text = r.read().decode()
+    return {line.rsplit(" ", 1)[0]: float(line.rsplit(" ", 1)[1])
+            for line in text.splitlines() if line.strip() and not line.startswith("#")}
+
+
+class DispatchLog:
+    """Wraps a ContinuousBatcher's ``_dispatch`` and ``_collect``: each
+    batch's start and end on the batcher's thread, its chunks and bucket,
+    the CUDA stream it launched on, and each entry's row and tokens."""
+
+    def __init__(self, batcher):
+        self.batcher, self.batches, self.entries = batcher, [], []
+        dispatch, collect = batcher._dispatch, batcher._collect
+
+        def timed_dispatch(batch):
+            t0 = time.perf_counter()
+            out = dispatch(batch)
+            torch.cuda.synchronize()
+            self.batches.append(dict(start=t0, end=time.perf_counter(), chunks=len(batch),
+                                     bucket=int(out[1].shape[0]),
+                                     stream=torch.cuda.current_stream().cuda_stream))
+            return out
+
+        def recorded_collect(in_flight):
+            collect(in_flight)
+            bucket = int(in_flight[1].shape[0])
+            self.entries += [(e.row, bucket, list(e.result.sequences_ids[0])) for e in in_flight[0]]
+
+        batcher._dispatch, batcher._collect = timed_dispatch, recorded_collect
+
+    def close(self):
+        del self.batcher._dispatch, self.batcher._collect
+
+    def idle(self, t_begin, t_end):
+        """Seconds between t_begin and t_end in which the batcher's thread
+        ran no dispatch: before the first, between batches, after the last."""
+        busy = sum(min(b["end"], t_end) - max(b["start"], t_begin) for b in self.batches
+                   if b["end"] > t_begin and b["start"] < t_end)
+        return (t_end - t_begin) - busy
+
+
+def concurrently(jobs):
+    """Run the callables of ``jobs`` ({name: fn}) on their own threads,
+    started together; returns {name: result} or raises the first error."""
+    import concurrent.futures
+    import threading
+
+    barrier = threading.Barrier(len(jobs))
+
+    def start(fn):
+        barrier.wait()
+        return fn()
+
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+        futs = {name: ex.submit(start, fn) for name, fn in jobs.items()}
+        return {name: f.result(timeout=900) for name, f in futs.items()}
+
+
+def token_diff(a, b):
+    """(tokens that differ, first step that differs) of two sequences."""
+    n = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+    first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+    return n, (first if n else None)
+
+
+def check_srt(text, duration):
+    """Well-formed SRT: numbered blocks from 1, each with a
+    ``HH:MM:SS,mmm --> HH:MM:SS,mmm`` line inside the audio and a text."""
+    import re
+
+    blocks = [b for b in text.strip().split("\n\n") if b.strip()]
+    if not blocks:
+        raise AssertionError("the CLI printed no SRT block")
+
+    def secs(ts):
+        h, m, s = ts.split(":")
+        return int(h) * 3600 + int(m) * 60 + float(s.replace(",", "."))
+
+    for i, block in enumerate(blocks, 1):
+        lines = block.split("\n")
+        m = re.fullmatch(r"(\d\d:\d\d:\d\d,\d\d\d) --> (\d\d:\d\d:\d\d,\d\d\d)", lines[1]) if len(lines) > 2 else None
+        if lines[0] != str(i) or m is None:
+            raise AssertionError(f"malformed SRT block {i}: {block!r}")
+        start, end = secs(m.group(1)), secs(m.group(2))
+        if not 0 <= start <= end <= duration + WINDOW_STRETCH_S:
+            raise AssertionError(f"SRT block {i} spans {start}..{end} s of {duration} s")
+    return len(blocks)
+
+
+def check_float32_threads(later, speech, card):
+    """The two thread hazards of serving at float32, with cuDNN's TF32 at
+    PyTorch's default (on): a float32 encode on one thread while another
+    sits in ``exact_float32`` must equal the encode run alone (the size of
+    the hazard, TF32 on against off, is printed); and a sequential and a
+    batched request served together (two threads launching K1, K3 and K4's
+    float32 forms) must equal each run alone, both launching on one
+    stream."""
+    import threading
+
+    from faster_whisper_tpu_torch.server import TranscriptionService
+    from faster_whisper_tpu_torch.transcribe import WhisperModel
+    from faster_whisper_tpu_torch.utils import exact_float32
+
+    cfg, tok = later["cfg"], later["tok"]
+    model = WhisperModel.from_parts(later["params"], cfg, tok, compute_type="float32")
+    fe = model.feature_extractor
+    feats = torch.as_tensor(fe(speech[: 30 * 16000])[:, :3000], device=model.device)[None]
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    try:
+        x_alone = model.encode(feats)
+        with exact_float32():
+            x_exact = model.encode(feats)
+        seen = {}
+
+        def encode_on_a_thread():
+            seen["x"] = model.encode(feats)
+            torch.cuda.synchronize()
+            seen["t"] = time.perf_counter()
+
+        with exact_float32():
+            t_block = time.perf_counter()
+            worker = threading.Thread(target=encode_on_a_thread)
+            worker.start()
+            time.sleep(0.5)
+            t_left = time.perf_counter()
+        worker.join(120)
+        hazard = (x_alone - x_exact).abs().max().item()
+        equal = torch.equal(seen["x"], x_alone)
+        print(f"float32 encode, TF32 convolutions on (PyTorch's default) against off (inside "
+              f"exact_float32): max|diff| {hazard:.3e} of max|x| {x_alone.abs().max().item():.3e}; "
+              f"the encode on a thread while another held exact_float32 for "
+              f"{t_left - t_block:.3f} s: equal to the encode alone: {equal}, it ended "
+              f"{seen['t'] - t_left:.3f} s after the block on {card}")
+        if not equal:
+            raise AssertionError("a float32 encode ran under another thread's exact_float32 flags")
+
+        clip = speech[: 20 * 16000]
+        payload = wav_bytes(clip)
+        seq_opts = dict(language="en", beam_size=1, temperature=0.0, max_new_tokens=64)
+        bat_opts = dict(language="en", beam_size=5, batch_size=8, max_new_tokens=64)
+        service = TranscriptionService(model)
+        streams = set()
+        dispatch = model.model.generate_dispatch
+
+        def recorded_dispatch(*args, **kwargs):
+            streams.add((threading.current_thread().name.split("-")[0],
+                         torch.cuda.current_stream().cuda_stream))
+            return dispatch(*args, **kwargs)
+
+        model.model.generate_dispatch = recorded_dispatch
+        try:
+            def keys(opts):
+                segments, _ = service.transcribe_bytes(payload, dict(opts, batch_size=opts.get("batch_size", 0)))
+                return [(s.seek, s.tokens, s.start, s.end) for s in segments]
+
+            alone = {"sequential": keys(seq_opts), "batched": keys(bat_opts)}
+            together = concurrently({"sequential": lambda: keys(seq_opts),
+                                     "batched": lambda: keys(bat_opts)})
+        finally:
+            del model.model.generate_dispatch
+            service.close()
+        same = {k: together[k] == alone[k] for k in alone}
+        print(f"float32 server, a sequential (beam 1) and a batched (beam 5) request of 20 s together "
+              f"against each alone: equal segments and tokens {same}; threads and CUDA streams that "
+              f"launched decodes: {sorted(streams)}")
+        if not all(same.values()):
+            raise AssertionError(f"float32 requests served together differ from each alone: {same}")
+        if len({s for _, s in streams}) != 1:
+            raise AssertionError(f"the serving threads launched on more than one stream: {streams}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    del model
+    torch.cuda.empty_cache()
+
+
+def run_serving(later, jfk, ct2_int8, card):
+    """Phase 11: the warm, the HTTP server with its ContinuousBatcher over
+    the int8 model of request i, a concurrent mix of requests, the same
+    four batched requests again with their launch counts (one launching
+    thread: the batcher's) against the unscheduled pipeline in series, the
+    float32 thread hazards, and the CLI on ``ct2_int8``.  Returns the
+    counts of the counted round."""
+    import io
+    import tempfile
+    import threading
+    import urllib.request
+
+    from faster_whisper_tpu_torch.audio import decode_audio
+    from faster_whisper_tpu_torch.precompile import warm_parallel
+    from faster_whisper_tpu_torch.server import make_server
+    from faster_whisper_tpu_torch.transcribe import BatchedInferencePipeline, WhisperModel
+
+    cfg, tok = later["cfg"], later["tok"]
+    audio = np.tile(jfk, -(-60 * 16000 // len(jfk)))[: 60 * 16000]
+    duration = len(audio) / 16000
+    payload = wav_bytes(audio)
+    audio = decode_audio(io.BytesIO(payload))  # what the server transcribes
+    model = WhisperModel.from_parts(later["params"], cfg, tok, compute_type="int8")
+
+    torch.cuda.reset_peak_memory_stats()
+    failures, sec = _synced_seconds(lambda: warm_parallel(
+        model, durations_s=(30.0, 300.0), batch_size=8, beam_size=5, max_new_tokens=(128,),
+        language="en", log=print,
+    ))
+    print(f"serving warm_parallel(durations_s=(30, 300), batch_size=8, beam_size=5, "
+          f"max_new_tokens=(128,)): {sec:.3f} s (kernels already built by phase 2), failures "
+          f"{failures}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+    if failures:
+        raise AssertionError(f"warm_parallel failed: {failures}")
+
+    server = make_server(model, model_name="large-v3-turbo int8")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_port}"
+    batcher = server.service.batcher
+    log = DispatchLog(batcher)
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = (r.status, json.load(r))
+        print(f"server on {url}: /healthz {health}")
+        if health[0] != 200:
+            raise AssertionError(f"/healthz answered {health}")
+
+        fields = dict(language="en", beam_size="5", batch_size="8", max_new_tokens="128",
+                      response_format="verbose_json")
+        batched = {f"batched {i}": (lambda: post_multipart(url, payload, fields)) for i in range(4)}
+        mix = dict(batched)
+        mix["sse"] = lambda: post_multipart(url, payload, dict(fields, stream="true"))
+        mix["sequential"] = lambda: post_multipart(url, payload, dict(fields, batch_size="0"))
+        t0 = time.perf_counter()
+        replies = concurrently(mix)
+        wall = time.perf_counter() - t0
+        for name, (status, body, seconds) in replies.items():
+            segments = served_segments(name, status, body, name == "sse", duration, cfg.n_vocab)
+            print(f"serving mix, request {name}: HTTP {status}, {len(segments)} segments, "
+                  f"{sum(len(s.tokens) for s in segments)} tokens, latency {seconds:.3f} s")
+        print(f"serving mix: 4 batched + 1 SSE + 1 sequential requests of {duration:.0f} s together, "
+              f"{wall:.3f} s wall; the batcher: {batcher.chunks_processed} chunks in "
+              f"{batcher.batches_dispatched} batches of {[b['chunks'] for b in log.batches]} chunks "
+              f"(buckets {[b['bucket'] for b in log.batches]}) on {card}")
+        if not batcher.batches_dispatched < batcher.chunks_processed:
+            raise AssertionError(f"the chunks did not coalesce: {batcher.batches_dispatched} batches for "
+                                 f"{batcher.chunks_processed} chunks")
+        metrics = scrape_metrics(url)
+        want = {"fwt_batcher_batches_dispatched_total": batcher.batches_dispatched,
+                "fwt_batcher_chunks_processed_total": batcher.chunks_processed,
+                'fwt_requests_total{status="ok"}': 6, "fwt_requests_in_flight": 0}
+        got = {k: metrics.get(k) for k in want}
+        print(f"/metrics: {got}")
+        if got != want:
+            raise AssertionError(f"/metrics reports {got}, expected {want}")
+
+        # the counted round: only the batcher's thread launches kernels
+        log.batches.clear()
+        log.entries.clear()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        b0, c0 = batcher.batches_dispatched, batcher.chunks_processed
+        t0 = time.perf_counter()
+        replies = concurrently(batched)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for name, (status, body, seconds) in replies.items():
+            served_segments(name, status, body, False, duration, cfg.n_vocab)
+        latencies = ", ".join(f"{r[2]:.3f}" for r in replies.values())
+        idle = log.idle(t0, t0 + wall)
+        gaps = [b["start"] - a["end"] for a, b in zip(log.batches, log.batches[1:])]
+        print(f"serving, 4 concurrent batched requests of {duration:.0f} s: latencies {latencies} s, "
+              f"{wall:.3f} s wall, {4 * duration / wall:.2f} audio s per wall s; "
+              f"{batcher.chunks_processed - c0} chunks in {batcher.batches_dispatched - b0} batches of "
+              f"{[b['chunks'] for b in log.batches]} chunks (buckets {[b['bucket'] for b in log.batches]}), "
+              f"batch seconds {[round(b['end'] - b['start'], 3) for b in log.batches]}; the batcher's "
+              f"thread idle {idle:.3f} s of the {wall:.3f} s ({idle / wall:.1%}; before the first batch "
+              f"{log.batches[0]['start'] - t0:.3f} s, between batches {[round(g, 3) for g in gaps]} s); "
+              f"peak memory {peak:.2f} GiB on {card}; counts {counts}")
+        print(f"main path counts, serving: {counts}")
+        check_counts(counts, per_step=("k2", "k4_int8"), per_encode="k3", cfg=cfg)
+        scheduled = list(log.entries)
+    finally:
+        log.close()
+        server.shutdown()
+        server.service.close()
+
+    # the same four requests one after another through the unscheduled pipeline
+    pipeline = BatchedInferencePipeline(model)
+    rows, collect = [], model.model.generate_collect
+
+    def recorded_collect(pending):
+        results = collect(pending)
+        rows.append((len(results), [list(r.sequences_ids[0]) for r in results]))
+        return results
+
+    model.model.generate_collect = recorded_collect
+    try:
+        t0 = time.perf_counter()
+        for _ in range(4):
+            segments, _ = pipeline.transcribe(audio, language="en", beam_size=5, batch_size=8,
+                                              max_new_tokens=128)
+            list(segments)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del model.model.generate_collect
+    n_chunks = max(r for r, _, _ in scheduled) + 1
+    per_run = rows[: len(rows) // 4]
+    unscheduled = {}  # row -> (bucket, tokens)
+    for bucket, toks in per_run:
+        for t in toks[: n_chunks - len(unscheduled)]:
+            unscheduled[len(unscheduled)] = (bucket, t)
+    print(f"the same 4 requests one after another through BatchedInferencePipeline without the "
+          f"scheduler: {wall:.3f} s, {4 * duration / wall:.2f} audio s per wall s on {card}")
+    same_bucket = [(row, toks == unscheduled[row][1]) for row, bucket, toks in scheduled
+                   if bucket == unscheduled[row][0]]
+    other = [(row, bucket, unscheduled[row][0], *token_diff(toks, unscheduled[row][1]))
+             for row, bucket, toks in scheduled if bucket != unscheduled[row][0]]
+    print(f"scheduled chunks against the unscheduled pipeline's: {len(same_bucket)} in the same bucket, "
+          f"equal tokens {sum(eq for _, eq in same_bucket)}; {len(other)} in another bucket, "
+          f"(row, scheduled bucket, unscheduled bucket, tokens that differ, first step that differs): "
+          f"{other}")
+    if not all(eq for _, eq in same_bucket):
+        raise AssertionError("a scheduled chunk's tokens differ from the unscheduled pipeline's in the "
+                             "same batch bucket")
+    del model, pipeline
+    torch.cuda.empty_cache()
+
+    check_float32_threads(later, audio, card)
+
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(ct2_int8)) as tmp:
+        path = os.path.join(tmp, "jfk60.wav")
+        with open(path, "wb") as f:
+            f.write(payload)
+        cmd = [sys.executable, "-m", "faster_whisper_tpu_torch", path, "--model", ct2_int8,
+               "--compute-type", "int8", "--language", "en", "--output-format", "srt"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        sec = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+    n_blocks = check_srt(proc.stdout, duration)
+    print(f"CLI: python -m faster_whisper_tpu_torch <{duration:.0f} s WAV> --model <CT2 int8 "
+          f"directory> --compute-type int8 --language en --output-format srt: exit 0, {n_blocks} SRT "
+          f"blocks, {sec:.3f} s (a new process: CUDA context, load, VAD, batched decode) on {card}; "
+          f"first block {proc.stdout.strip().splitlines()[:3]}")
+    return counts
+
+
 def _fmt(x):
     return "n/a" if x is None else f"{x:.4f} ms"
 
@@ -1677,13 +2131,22 @@ def main():
     check_small_model_against_cpu()
     check_small_pipeline_against_cpu(jfk)
     phase("small model against the CPU", t0)
-    t0 = time.perf_counter()
-    runs.update(run_checkpoints(speech, card))
-    phase("checkpoints", t0)
-    t0 = time.perf_counter()
-    runs.update(run_word_timestamps(later, jfk, speech, pipeline_chunks, runs["i"], card))
-    del later
-    phase("word timestamps", t0)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", f"checkpoints_{os.getpid()}")
+    os.makedirs(root)
+    try:
+        t0 = time.perf_counter()
+        counts, ct2_int8 = run_checkpoints(speech, card, root)
+        runs.update(counts)
+        phase("checkpoints", t0)
+        t0 = time.perf_counter()
+        runs.update(run_word_timestamps(later, jfk, speech, pipeline_chunks, runs["i"], card))
+        phase("word timestamps", t0)
+        t0 = time.perf_counter()
+        runs["serving"] = run_serving(later, jfk, ct2_int8, card)
+        del later
+        phase("serving", t0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     def entry(name, label, source, replaces, launches):
         t = times[label]
@@ -1692,8 +2155,9 @@ def main():
                     **{k: t[k] for k in ("ms", "cold_ms", "call_ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")})
 
-    bf16, int8, fp32, int8_f32, req_h, req_i, req_j, req_k, req_l, req_m, req_n, req_o = (
-        runs[k] for k in ("bf16", "int8", "f32", "int8_f32", "h", "i", "j", "k", "l", "m", "n", "o")
+    bf16, int8, fp32, int8_f32, req_h, req_i, req_j, req_k, req_l, req_m, req_n, req_o, serve = (
+        runs[k] for k in ("bf16", "int8", "f32", "int8_f32", "h", "i", "j", "k", "l", "m", "n", "o",
+                          "serving")
     )
     # the K4 int8 form's error: over int8 codes and over the int4 cross cache's
     errs["K4 int8"] = max(errs["K4 int8"], errs["K4 int8 qmax7"])
@@ -1704,12 +2168,13 @@ def main():
         entry("beam_attend_append f32 (K1)", "K1 f32", "beam_attention.cu", K1_REPLACES,
               fp32["k1_f32"]),
         entry("beam_attend_append int8 (K2)", "K2", "beam_attention.cu", K2_REPLACES,
-              int8["k2"] + req_i["k2"] + req_k["k2"] + req_m["k2"] + req_n["k2"] + req_o["k2"]),
+              int8["k2"] + req_i["k2"] + req_k["k2"] + req_m["k2"] + req_n["k2"] + req_o["k2"]
+              + serve["k2"]),
         entry("beam_attend_append int8, f32 activations (K2)", "K2 f32", "beam_attention.cu",
               K2_REPLACES, int8_f32["k2_f32"]),
         entry("mha_flash bf16 (K3)", "K3", "flash_attention.cu", K3_REPLACES,
               bf16["k3"] + int8["k3"] + req_h["k3"] + req_i["k3"] + req_j["k3"] + req_k["k3"]
-              + req_l["k3"] + req_m["k3"] + req_n["k3"] + req_o["k3"]),
+              + req_l["k3"] + req_m["k3"] + req_n["k3"] + req_o["k3"] + serve["k3"]),
         entry("mha_flash f32 (K3)", "K3 f32", "flash_attention.cu", K3_REPLACES,
               fp32["k3_f32"] + int8_f32["k3_f32"]),
         entry("cross_attend bf16 (K4a)", "K4 bf16", "cross_attention.cu", K4A_REPLACES,
@@ -1718,7 +2183,7 @@ def main():
               fp32["k4_f32"]),
         entry("cross_attend int8 (K4b, K4c)", "K4 int8", "cross_attention.cu", K4B_REPLACES,
               int8["k4_int8"] + req_i["k4_int8"] + req_k["k4_int8"] + req_m["k4_int8"]
-              + req_n["k4_int8"] + req_o["k4_int8"]),
+              + req_n["k4_int8"] + req_o["k4_int8"] + serve["k4_int8"]),
         entry("cross_attend int8, f32 activations (K4b, K4c)", "K4 int8 f32", "cross_attention.cu",
               K4B_REPLACES, int8_f32["k4_int8_f32"]),
     ]

@@ -11,6 +11,8 @@ reduces the alignment heads' cross-attention to the DTW's input matrix on
 the device, and the DTW (``dtw.py``, native) runs on the host.
 """
 
+import contextlib
+
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -29,6 +31,7 @@ from faster_whisper_tpu_torch.models.config import WhisperConfig
 from faster_whisper_tpu_torch.ops.attention import mha
 from faster_whisper_tpu_torch.ops.quant import QuantizedLinear
 from faster_whisper_tpu_torch.tokenizer import _LANGUAGE_CODES
+from faster_whisper_tpu_torch.utils import steady_float32
 
 
 class AlignmentResult:
@@ -308,7 +311,10 @@ class WhisperEngine:
         feats = torch.as_tensor(features, dtype=torch.float32, device=self.device)
         if feats.dim() == 2:
             feats = feats[None]
-        with torch.no_grad():
+        # A float32 encoder's convolutions read the process's TF32 flags,
+        # which another thread's VAD or log-mel turns off for its block.
+        f32 = self.params["encoder"]["conv1_w"].dtype == torch.float32
+        with torch.no_grad(), steady_float32() if f32 else contextlib.nullcontext():
             return M.encode(self.params, self.config, feats)
 
     def generate(self, encoder_output, prompts, **kwargs) -> List[WhisperGenerationResult]:

@@ -57,9 +57,13 @@ def _buffer(device: torch.device, use: str, n: int, dtype: torch.dtype) -> torch
     """The zero-initialised buffer of at least ``n`` elements kept for
     ``use`` on ``device``."""
     bufs = _buffers.setdefault((device, use), [])
-    if not bufs or bufs[-1].numel() < n:
-        bufs.append(torch.zeros(max(n, 256), dtype=dtype, device=device))
-    return bufs[-1]
+    buf = bufs[-1] if bufs else None
+    if buf is None or buf.numel() < n:
+        # returned from this frame, not re-read from the list: another
+        # thread may append a smaller buffer in between
+        buf = torch.zeros(max(n, 256), dtype=dtype, device=device)
+        bufs.append(buf)
+    return buf
 
 
 def _sm_count(device: torch.device) -> int:

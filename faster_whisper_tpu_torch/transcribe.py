@@ -34,8 +34,13 @@ at 4-bit range (``ops/quant.py::quantize_params_int4``, per output channel
 or in groups of ``int4_group_size`` input rows) and the cross cache at
 4-bit range; the encoder and the self cache stay at int8 range.
 
+``BatchedInferencePipeline(model, scheduler=ContinuousBatcher(model))``
+sends each request's chunks to a process-wide batcher
+(``scheduler.py``), where the chunks of concurrent requests share device
+batches.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: the continuous-batching scheduler and more than one device.
+ROADMAP item: more than one device.
 """
 
 import itertools
@@ -1344,13 +1349,12 @@ class WhisperModel:
 
 class BatchedInferencePipeline:
     def __init__(self, model: WhisperModel, scheduler=None):
-        """Batches the chunks of one request through ``model``.  The
-        cross-request ``scheduler`` of the JAX package is not ported."""
-        if scheduler is not None:
-            raise NotImplementedError(
-                "scheduler: continuous batching across requests is " + NOT_PORTED.format(12)
-            )
+        """Batches the chunks of one request through ``model``.
+        ``scheduler`` (a ``scheduler.ContinuousBatcher``) routes them
+        through a process-wide batcher instead, so that CONCURRENT requests
+        share device batches; None keeps the in-request batching."""
         self.model: WhisperModel = model
+        self.scheduler = scheduler
         self.last_speech_timestamp = 0.0
         self._batch_bucket = None
 
@@ -1770,9 +1774,17 @@ class BatchedInferencePipeline:
             all_language_probs=all_language_probs,
         )
 
-        segments = self._batched_segments_generator(
-            features, tokenizer, chunks_metadata, batch_size, options, log_progress
-        )
+        if self.scheduler is not None and not multilingual:
+            # cross-request continuous batching (multilingual stays on the
+            # in-request path: its prompts are patched from this batch's
+            # own encoder output)
+            segments = self._scheduled_segments_generator(
+                features, tokenizer, chunks_metadata, options, log_progress
+            )
+        else:
+            segments = self._batched_segments_generator(
+                features, tokenizer, chunks_metadata, batch_size, options, log_progress
+            )
         if not clip_timestamps_provided:
             segments = restore_speech_timestamps(segments, clip_timestamps, sampling_rate)
 
@@ -1842,6 +1854,140 @@ class BatchedInferencePipeline:
                         compression_ratio=segment["compression_ratio"],
                         temperature=options.temperatures[0],
                     )
+
+        self.last_speech_timestamp = 0.0
+
+    def _scheduled_segments_generator(
+        self, features, tokenizer, chunks_metadata, options, log_progress
+    ):
+        """Chunk generator over the process-wide ContinuousBatcher: this
+        request's chunks are submitted once and may run in device batches
+        SHARED with other concurrent requests; results are consumed in
+        chunk order so generator and timestamp semantics are unchanged.
+        The word-timestamp alignment runs per chunk on this request's
+        thread, between the batcher's batches."""
+        from faster_whisper_tpu_torch.scheduler import GenKey
+
+        # Count feature rows, not metadata entries: when the VAD removes
+        # ALL speech, collect_chunks still emits one empty chunk with
+        # metadata but `features` is [].  Zero rows -> zero entries -> the
+        # generator yields nothing.  Any other length mismatch is a fault
+        # that the zip below would silently truncate.
+        n_chunks = len(features)
+        assert n_chunks in (0, len(chunks_metadata)), (n_chunks, len(chunks_metadata))
+        prompt = self.model.get_prompt(
+            tokenizer,
+            previous_tokens=(
+                tokenizer.encode(options.initial_prompt)
+                if options.initial_prompt is not None
+                else []
+            ),
+            without_timestamps=options.without_timestamps,
+            hotwords=options.hotwords,
+        )
+        if options.max_new_tokens is not None:
+            max_length = len(prompt) + options.max_new_tokens
+        else:
+            max_length = self.model.max_length
+        if max_length > self.model.max_length:
+            raise ValueError(
+                f"The combined length of the prompt ({len(prompt)}) and "
+                f"`max_new_tokens` exceeds the model's `max_length` "
+                f"({self.model.max_length})."
+            )
+
+        temperature = options.temperatures[0]
+        key = GenKey(
+            beam_size=options.beam_size,
+            patience=options.patience,
+            length_penalty=options.length_penalty,
+            repetition_penalty=options.repetition_penalty,
+            no_repeat_ngram_size=options.no_repeat_ngram_size,
+            max_length=max_length,
+            suppress_blank=options.suppress_blank,
+            suppress_tokens=tuple(options.suppress_tokens or ()),
+            # the temperature itself is per row (scheduler.GenKey); only the
+            # sampling/beam split partitions batches
+            sampling=options.beam_size == 1 and temperature > 0,
+            with_timestamps=self.model.model.meta.no_timestamps not in prompt,
+        )
+        entries = (
+            self.scheduler.submit(features, [prompt] * n_chunks, key, temperature=temperature)
+            if n_chunks
+            else []
+        )
+
+        seg_idx = 0
+        for ci, (entry, chunk_metadata) in enumerate(zip(entries, chunks_metadata)):
+            entry.event.wait()
+            if entry.error is not None:
+                raise entry.error
+            result = entry.result
+            seq_len = len(result.sequences_ids[0])
+            cum_logprob = result.scores[0] * (seq_len ** options.length_penalty)
+            output = dict(
+                avg_logprob=cum_logprob / (seq_len + 1),
+                no_speech_prob=result.no_speech_prob,
+                tokens=result.sequences_ids[0],
+            )
+
+            duration = chunk_metadata["duration"]
+            segment_size = int(ceil(duration) * self.model.frames_per_second)
+            subsegments, _seek, _single_timestamp_ending = self.model._split_segments_by_timestamps(
+                tokenizer=tokenizer,
+                tokens=output["tokens"],
+                time_offset=chunk_metadata["offset"],
+                segment_size=segment_size,
+                segment_duration=duration,
+                seek=0,
+            )
+            segmented = [
+                dict(
+                    text=tokenizer.decode(subsegment["tokens"]),
+                    avg_logprob=output["avg_logprob"],
+                    no_speech_prob=output["no_speech_prob"],
+                    tokens=subsegment["tokens"],
+                    start=subsegment["start"],
+                    end=subsegment["end"],
+                    compression_ratio=get_compression_ratio(
+                        tokenizer.decode(subsegment["tokens"])
+                    ),
+                    seek=int(chunk_metadata["offset"] * self.model.frames_per_second),
+                )
+                for subsegment in subsegments
+            ]
+            if options.word_timestamps:
+                self.last_speech_timestamp = self.model.add_word_timestamps(
+                    [segmented],
+                    tokenizer,
+                    entry.enc[entry.enc_row : entry.enc_row + 1],
+                    [segment_size],
+                    options.prepend_punctuations,
+                    options.append_punctuations,
+                    self.last_speech_timestamp,
+                )
+            if log_progress:
+                self.model.logger.info("Processed chunk %d of %d", ci + 1, n_chunks)
+
+            for segment in segmented:
+                seg_idx += 1
+                yield Segment(
+                    seek=segment["seek"],
+                    id=seg_idx,
+                    text=segment["text"],
+                    start=round(segment["start"], 3),
+                    end=round(segment["end"], 3),
+                    words=(
+                        [Word(**word) for word in segment["words"]]
+                        if options.word_timestamps
+                        else None
+                    ),
+                    tokens=segment["tokens"],
+                    avg_logprob=segment["avg_logprob"],
+                    no_speech_prob=segment["no_speech_prob"],
+                    compression_ratio=segment["compression_ratio"],
+                    temperature=options.temperatures[0],
+                )
 
         self.last_speech_timestamp = 0.0
 

@@ -144,7 +144,8 @@ def exact_float32():
     inside the block, then restore the caller's settings.  The VAD and the
     device log-mel feed thresholds and a global-max clamp, which TF32's
     10-bit mantissa visibly moves.  The flags are process-wide: the lock
-    keeps two threads in such blocks from restoring each other's values."""
+    keeps two threads in such blocks from restoring each other's values,
+    and ``steady_float32`` keeps model code out of them."""
     with _TF32_LOCK:
         matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -154,6 +155,17 @@ def exact_float32():
         finally:
             torch.backends.cuda.matmul.allow_tf32 = matmul
             torch.backends.cudnn.allow_tf32 = cudnn
+
+
+@contextlib.contextmanager
+def steady_float32():
+    """Launch float32 work under the process's own TF32 settings: the block
+    waits while another thread is inside ``exact_float32`` (whose flags
+    would otherwise reach this thread's launches) and keeps such blocks out
+    until it ends.  The flags are read when an operation is launched, so
+    only the host side of the launches is held."""
+    with _TF32_LOCK:
+        yield
 
 
 def format_timestamp(

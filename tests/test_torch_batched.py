@@ -249,11 +249,3 @@ def test_no_speech_and_no_chunks(models):
     assert list(segments) == [] and info.duration_after_vad == 0
     with pytest.raises(RuntimeError, match="No clip timestamps"):
         pipe.transcribe(np.zeros(16000 * 40, np.float32), language="en", vad_filter=False)
-
-
-@pytest.mark.parametrize("option,item", [("scheduler", 12)])
-def test_options_outside_the_slice_raise(models, option, item):
-    _, pm = models
-    match = rf"\(ROADMAP\.md, Queue 1 item {item}\)"
-    with pytest.raises(NotImplementedError, match=match):
-        BatchedInferencePipeline(pm, scheduler=object())

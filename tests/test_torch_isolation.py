@@ -1,15 +1,19 @@
 """The port stands alone: it runs where there is no JAX, no ``tokenizers``,
 no ``regex``, no ``huggingface_hub``, no ``safetensors``, no
-``transformers``, no PyAV, no ``tqdm`` and no JAX package.  A subprocess
-refuses those imports with a meta-path finder, imports every module of
-``faster_whisper_tpu_torch`` and ``chip_smoke``, runs a tiny transcribe and
+``transformers``, no PyAV, no ``tqdm``, no ``grpc``, no ``protobuf`` and no
+JAX package.  A subprocess refuses those imports with a meta-path finder,
+imports every module of ``faster_whisper_tpu_torch`` but the gRPC server
+and its generated messages (whose import must then raise ``ImportError``)
+and ``chip_smoke``, serves one request through the HTTP server after its
+startup warm, runs a tiny transcribe and
 a tiny batched transcribe of ``docker/jfk.flac`` (decoded by the port's
 native FLAC decoder, built from its own ``csrc/flac_decoder.cpp``, VAD
 on, with word timestamps through the native DTW of ``csrc/dtw.cpp``) on
 the CPU, loads a CTranslate2 and an HF directory written by the
 port with their ``tokenizer.json`` through ``WhisperModel(directory)``,
 and checks that the card is the default device.  A second test reads the
-sources for such imports.  scipy, which resamples in ``decode_audio``, is
+sources for such imports: only the gRPC server imports ``grpc`` and only
+its generated messages ``google.protobuf``.  scipy, which resamples in ``decode_audio``, is
 imported there lazily and is installed wherever the port runs."""
 
 import ast
@@ -34,6 +38,13 @@ BLOCKED = (
     "jax", "jaxlib", "tokenizers", "regex", "huggingface_hub", "safetensors", "transformers",
     "av", "tqdm", "faster_whisper_tpu",
 )
+# The card's machine has neither: the modules that need them are imported
+# by nothing else of the port.
+GRPC = ("grpc", "google.protobuf")
+GRPC_MODULES = {
+    "faster_whisper_tpu_torch.grpc_server": "grpc",
+    "faster_whisper_tpu_torch.protos.transcription_pb2": "google.protobuf",
+}
 
 
 def _blocked(name: str) -> bool:
@@ -59,8 +70,17 @@ CHILD = textwrap.dedent(
     import faster_whisper_tpu_torch as pkg
     import chip_smoke  # its __main__ is guarded: importing runs nothing
 
+    GRPC_MODULES = %r
     for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
-        importlib.import_module(mod.name)
+        if mod.name not in GRPC_MODULES:
+            importlib.import_module(mod.name)
+    for name in GRPC_MODULES:
+        try:
+            importlib.import_module(name)
+        except ImportError as e:
+            assert "refused import" in str(e), e
+        else:
+            raise AssertionError(name + " imported without grpc and protobuf")
 
     from faster_whisper_tpu_torch import (
         BatchedInferencePipeline, WhisperModel, decode_audio, format_timestamp,
@@ -79,6 +99,27 @@ CHILD = textwrap.dedent(
     segments = list(segments)
     assert info.language in model.supported_languages
     print("segments", len(segments), format_timestamp(info.duration))
+
+    import io, json, threading, urllib.request, wave
+    from faster_whisper_tpu_torch.precompile import warm_parallel
+    from faster_whisper_tpu_torch.server import make_server
+
+    assert warm_parallel(model, durations_s=(30.0,), batch_size=2, beam_size=2,
+                         max_new_tokens=8) == []
+    server = make_server(model, model_name="micro")
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = "http://127.0.0.1:%%d" %% server.server_port
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1); w.setsampwidth(2); w.setframerate(16000)
+        w.writeframes((audio[: 16000 * 3] * 32767).astype(np.int16).tobytes())
+    req = urllib.request.Request(
+        url + "/v1/audio/transcriptions?language=en&beam_size=2&max_new_tokens=8&vad_filter=false",
+        data=buf.getvalue(), headers={"Content-Type": "audio/wav"})
+    body = json.load(urllib.request.urlopen(req))
+    assert "segments" in body and server.service.batcher.chunks_processed == 1, body
+    server.shutdown(); server.service.close()
+    print("served", len(body["segments"]))
 
     speech = decode_audio("docker/jfk.flac")
     segments, info = BatchedInferencePipeline(model).transcribe(
@@ -143,7 +184,7 @@ def test_port_runs_without_jax_tokenizers_or_the_jax_package():
     # one intra-op thread, as the other port tests run (test_torch_vad.py)
     env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     proc = subprocess.run(
-        [sys.executable, "-c", CHILD % (BLOCKED,)],
+        [sys.executable, "-c", CHILD % (BLOCKED + GRPC, GRPC_MODULES)],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
     )
     assert proc.returncode == 0 and "ISOLATED-OK" in proc.stdout, (
@@ -167,6 +208,13 @@ def test_sources_import_nothing_of_jax_or_the_jax_package():
     assert len(files) > 15
     bad = [(f, m) for f in files for m in _imports(f) if _blocked(m)]
     assert not bad, bad
+    # grpc and protobuf only where the gRPC server needs them
+    allowed = {os.path.join(ROOT, *name.split(".")) + ".py": lib for name, lib in GRPC_MODULES.items()}
+    grpc = {
+        (f, g) for f in files for m in _imports(f) for g in GRPC
+        if m == g or m.startswith(g + ".")
+    }
+    assert grpc == set(allowed.items()), grpc
     # the prefix trap: the port's own name starts with the JAX package's
     assert not _blocked("faster_whisper_tpu_torch")
     assert _blocked("faster_whisper_tpu") and _blocked("faster_whisper_tpu.models")

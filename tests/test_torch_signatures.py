@@ -16,11 +16,17 @@ each a deliberate one, are listed in ``ALLOWED``:
   the JAX package's arguments: the port's only way to build a model on the
   host from parts, as ``WhisperModel(device="cpu")`` is from a directory.
 
+The serving surface is held the same way: ``ContinuousBatcher``, the HTTP
+server's ``make_server``, ``serve`` and ``TranscriptionService``,
+``warm_parallel``, and the command lines of the CLI and the server (each
+option's flags, destination, default, type, choices, count and action).
+
 The dataclasses ``Word``, ``Segment``, ``TranscriptionOptions``,
 ``TranscriptionInfo`` and ``VadOptions`` must have the same fields, in
 order, with the same defaults, and the same methods; ``Word._asdict`` and
 ``Segment._asdict`` warn and return the dict as the JAX package's do."""
 
+import argparse
 import dataclasses
 import inspect
 import warnings
@@ -30,10 +36,18 @@ import pytest
 import jax  # noqa: F401  (test files import both frameworks)
 import torch  # noqa: F401
 
+import faster_whisper_tpu.__main__ as jax_cli
 import faster_whisper_tpu.audio as jax_audio
+import faster_whisper_tpu.precompile as jax_precompile
+import faster_whisper_tpu.scheduler as jax_scheduler
+import faster_whisper_tpu.server as jax_server
 import faster_whisper_tpu.transcribe as jax_transcribe
 import faster_whisper_tpu.vad as jax_vad
+import faster_whisper_tpu_torch.__main__ as port_cli
 import faster_whisper_tpu_torch.audio as port_audio
+import faster_whisper_tpu_torch.precompile as port_precompile
+import faster_whisper_tpu_torch.scheduler as port_scheduler
+import faster_whisper_tpu_torch.server as port_server
 import faster_whisper_tpu_torch.transcribe as port_transcribe
 import faster_whisper_tpu_torch.vad as port_vad
 
@@ -67,6 +81,27 @@ FUNCTIONS = {
     ),
     "decode_audio": (jax_audio.decode_audio, port_audio.decode_audio),
     "get_speech_timestamps": (jax_vad.get_speech_timestamps, port_vad.get_speech_timestamps),
+    "ContinuousBatcher.__init__": (
+        jax_scheduler.ContinuousBatcher.__init__, port_scheduler.ContinuousBatcher.__init__,
+    ),
+    "ContinuousBatcher.submit": (
+        jax_scheduler.ContinuousBatcher.submit, port_scheduler.ContinuousBatcher.submit,
+    ),
+    "server.make_server": (jax_server.make_server, port_server.make_server),
+    "server.serve": (jax_server.serve, port_server.serve),
+    "TranscriptionService.__init__": (
+        jax_server.TranscriptionService.__init__, port_server.TranscriptionService.__init__,
+    ),
+    "TranscriptionService.stream_bytes": (
+        jax_server.TranscriptionService.stream_bytes, port_server.TranscriptionService.stream_bytes,
+    ),
+    "warm_parallel": (jax_precompile.warm_parallel, port_precompile.warm_parallel),
+}
+
+# name -> the module whose ``main(argv)`` builds that command line
+COMMAND_LINES = {
+    "cli": (jax_cli, port_cli),
+    "server": (jax_server, port_server),
 }
 
 # name -> (parameters only the JAX package has, parameters only the port has)
@@ -139,3 +174,33 @@ def test_asdict_shims_warn_and_return_the_dict(name):
         out.append((d, str(caught[0].message), caught[0].filename))
     assert out[0][:2] == out[1][:2]
     assert out[1][2] == __file__  # stacklevel 2: the caller's line
+
+
+class _Parsed(Exception):
+    """Raised by ``parse_args`` to hand back the parser of a ``main``."""
+
+
+def command_line(module, monkeypatch):
+    """[(flags, dest, default, type, choices, nargs, action)] of the
+    options that ``module.main`` parses, read off its parser before it
+    parses anything."""
+
+    def capture(self, *args, **kwargs):
+        raise _Parsed(self)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", capture)
+    with pytest.raises(_Parsed) as info:
+        module.main(["x"])
+    monkeypatch.undo()
+    return [
+        (tuple(a.option_strings), a.dest, a.default, a.type, a.choices, a.nargs, type(a).__name__)
+        for a in info.value.args[0]._actions
+    ]
+
+
+@pytest.mark.parametrize("name", list(COMMAND_LINES))
+def test_command_line_matches_jax(name, monkeypatch):
+    ref, ours = COMMAND_LINES[name]
+    want = command_line(ref, monkeypatch)
+    assert len(want) > 5
+    assert command_line(ours, monkeypatch) == want
