@@ -108,7 +108,29 @@ Phases, each printing its own line with its seconds:
     sequential and a batched request served together must equal each
     served alone, launching on one stream; last the CLI, ``python -m
     faster_whisper_tpu_torch`` on the 60 s WAV with the int8 CT2
-    directory of request k, must exit 0 and print well-formed SRT.
+    directory of request k, must exit 0 and print well-formed SRT;
+12. speculation, the pipelined VAD, the gate, the warm CLI and memory:
+    one speculative encode on the side stream against the in-line encode
+    at bf16 and int8 (``torch.equal``; K3 x 32 and no K1, K2 or K4
+    launched on the side stream), then requests p (150 s of the
+    synthetic audio, en, without timestamps, beam 5, 128 new tokens,
+    temperature 0, bf16), q (p at int8) and a, each with
+    ``FWT_SPEC_ENCODE=0`` and then ``=1`` (``SpeculationProbe``: the
+    sampling rungs' seeds follow the call order in both), whose segments
+    must be equal, every hit's states equal to the in-line encode of its
+    window and every speculative encode free of K1, K2 and K4 launches;
+    speculative encodes, hits, misses, K3 launches, wall seconds, ms per
+    step, and the side encode's device ms against the decode steps that
+    ran beside it are printed.  ``upload_with_vad`` over the tiled 5
+    minutes against ``upload_audio`` and the whole-buffer forward, timed in
+    turns (PCM equal, probabilities within VAD_PROB_TOL, speech
+    timestamps equal), and request h under ``FWT_PIPELINED_VAD=1``, whose
+    segments must be h's.  ``validate.main(["--mock"])`` (the micro model
+    at widths 128, float32) must exit 0 with no failure;
+    ``precompile.main`` at large-v3-turbo width, int8, must exit 0 with
+    phase 7's launch counts; ``memory_report(batch_size=8, beam_size=5,
+    max_new_tokens=128)`` on request i's int8 model is printed beside i's
+    measured peak.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as the last line
@@ -824,10 +846,10 @@ def run_main_path(speech):
     print(f"main path counts, bf16 (a-c): {bf16}")
     check_counts(bf16, per_step=("k1", "k4_bf16"), per_encode="k3", cfg=cfg)
     runs = {"bf16": bf16}
-    runs["h"] = run_batched(model, "h: bf16", speech, cfg)[0]
+    runs["h"], h_segments, _ = run_batched(model, "h: bf16", speech, cfg)
     check_counts(runs["h"], per_step=("k1", "k4_bf16"), per_encode="k3", cfg=cfg)
 
-    later = dict(params=params, cfg=cfg, tok=tok)
+    later = dict(params=params, cfg=cfg, tok=tok, h_segments=h_segments)
     for key, compute_type, requests, per_step, per_encode, batched in (
         ("int8", "int8", [
             ("d: int8, 45 s, language detection, beam 5, temperature ladder, timestamps",
@@ -854,6 +876,7 @@ def run_main_path(speech):
             runs[batched], later["i_segments"], later["i_seconds"] = run_batched(
                 model, f"{batched}: {compute_type}", speech, cfg
             )
+            later["i_peak"] = torch.cuda.max_memory_allocated()
             check_counts(runs[batched], per_step=per_step, per_encode=per_encode, cfg=cfg)
 
     for key, group in (("n", None), ("o", 128)):
@@ -2046,6 +2069,426 @@ def run_serving(later, jfk, ct2_int8, card):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the speculative encode, the pipelined VAD, the gate, the warm
+# CLI and memory_report
+# ---------------------------------------------------------------------------
+
+# Kernel forms that must never launch on the speculative encode's side
+# stream: K1, K2 and K4 share per-device buffers (ops/cross_attention.py).
+DECODE_FORMS = ("k1", "k1_f32", "k2", "k2_f32", "k4_bf16", "k4_f32", "k4_int8", "k4_int8_f32")
+
+
+def check_side_encode(model, window, n_layer, k3="k3"):
+    """One speculative encode of ``window`` on the side stream
+    (``transcribe._SideEncode``) against the in-line encode of the same
+    window on the default stream: ``torch.equal``, and the side stream
+    launched K3 ``n_layer`` times and no K1, K2 or K4 (the launch counters
+    read around it).  Returns the side stream's priority and the default
+    stream's."""
+    from faster_whisper_tpu_torch import transcribe
+    from faster_whisper_tpu_torch.utils import side_stream
+
+    before = read_counts()
+    side = transcribe._SideEncode(model.encode, window)
+    after = read_counts()
+    got = side.result()
+    want = model.encode(window)
+    torch.cuda.synchronize()
+    delta = {k: after[k] - before[k] for k in after}
+    if any(delta[k] for k in DECODE_FORMS) or delta[k3] != n_layer or delta["encodes"] != 1:
+        raise AssertionError(f"the side-stream encode launched {delta}")
+    if not torch.equal(got, want):
+        raise AssertionError(f"the side-stream encode differs from the in-line one: max|diff| "
+                             f"{(got.float() - want.float()).abs().max().item():.3e}")
+    stream = side_stream(window.device, "speculative encode")
+    return getattr(stream, "priority", "n/a"), getattr(torch.cuda.current_stream(), "priority", "n/a")
+
+
+def _priority_range():
+    """CUDA's (least, greatest) stream priority, as PyTorch reports it."""
+    fn = getattr(torch.cuda.Stream, "priority_range", None)
+    try:
+        return fn() if fn is not None else "n/a"
+    except TypeError:  # printed only: an instance method in this PyTorch
+        return "n/a"
+
+
+class SpeculationProbe:
+    """Within the block: every speculative encode (``transcribe.
+    _SideEncode``) is logged with the launch counters read around it, its
+    window and output kept; every encode is timed with CUDA events on the
+    stream it launched on (the side stream for a speculative one); every
+    decode step records an event on the default stream after its launches;
+    and the sampling rungs' seeds follow the call order (the port draws
+    fresh entropy per call otherwise), so that runs with speculation off
+    and on sample the same.  ``report()`` reads it all after the run."""
+
+    def __init__(self, model):
+        self.model = model
+        self.made, self.encodes, self.steps = [], [], []
+
+    def __enter__(self):
+        from faster_whisper_tpu_torch import transcribe
+        from faster_whisper_tpu_torch.generation import generate
+
+        probe, model = self, self.model
+        base = self._base = transcribe._SideEncode
+
+        class Probe(base):
+            def __init__(self, encode, window):
+                before = read_counts()
+                super().__init__(encode, window)
+                after = read_counts()
+                self.entry = dict(window=window, output=self.output, hit=False,
+                                  delta={k: after[k] - before[k]
+                                         for k in DECODE_FORMS + ("k3", "k3_f32", "encodes")})
+                probe.made.append(self.entry)
+
+            def result(self):
+                self.entry.update(hit=True, until=len(probe.steps))
+                return super().result()
+
+        encode = model.encode
+
+        def timed_encode(features):
+            stream = torch.cuda.current_stream()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            out = encode(features)
+            end.record(stream)
+            probe.encodes.append((stream.cuda_stream != torch.cuda.default_stream().cuda_stream,
+                                  start, end))
+            return out
+
+        step, seeds = generate._gen_decoder_step, generate._row_seeds
+        counter = iter(range(10**9))
+
+        def stepped(*args):
+            out = step(*args)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            probe.steps.append(ev)
+            return out
+
+        stepped.calls = 0
+        self._saved = (step, seeds)
+        transcribe._SideEncode = Probe
+        model.encode = timed_encode
+        generate._gen_decoder_step = stepped
+        generate._row_seeds = lambda rng_seed, b: seeds(
+            next(counter) if rng_seed is None else rng_seed, b
+        )
+        return self
+
+    def __exit__(self, *exc):
+        from faster_whisper_tpu_torch import transcribe
+        from faster_whisper_tpu_torch.generation import generate
+
+        transcribe._SideEncode = self._base
+        del self.model.encode
+        # the step function counts its calls on its module's name, which
+        # named the wrapper meanwhile
+        stepped = generate._gen_decoder_step
+        generate._gen_decoder_step, generate._row_seeds = self._saved
+        generate._gen_decoder_step.calls += stepped.calls
+        return False
+
+    def report(self, n_layer, k3="k3"):
+        """Checks every speculative encode's launches (``k3``: its K3
+        form) and every hit's states against the in-line encode of its
+        window; returns the numbers of the run: speculative encodes, hits,
+        misses, the side and in-line encodes' device ms, and the device ms
+        between consecutive decode steps' events for the steps whose span
+        overlaps a speculative encode against the others."""
+        torch.cuda.synchronize()
+        for e in self.made:
+            d = e["delta"]
+            if any(d[k] for k in DECODE_FORMS) or d[k3] != n_layer or d["encodes"] != 1:
+                raise AssertionError(f"a speculative encode launched {d} on the side stream")
+        side = [s.elapsed_time(t) for on_side, s, t in self.encodes if on_side]
+        inline = [s.elapsed_time(t) for on_side, s, t in self.encodes if not on_side]
+        side_spans = [(s, t) for on_side, s, t in self.encodes if on_side]
+        beside, other = [], []
+        for a, b in zip(self.steps, self.steps[1:]):
+            overlaps = any(a.elapsed_time(t) > 0 and s.elapsed_time(b) > 0 for s, t in side_spans)
+            (beside if overlaps else other).append(a.elapsed_time(b))
+        saved = read_counts()
+        equal = []
+        for e in self.made:
+            if e["hit"]:
+                equal.append(torch.equal(e["output"], self.model.model.encode(e["window"])))
+        torch.cuda.synchronize()
+        for name, (f, attr) in _counted().items():
+            setattr(f, attr, saved[name])  # the check's encodes do not count
+        if not all(equal):
+            raise AssertionError(f"a speculation hit's encoder states differ from the in-line encode "
+                                 f"of its window ({equal})")
+        hits = sum(e["hit"] for e in self.made)
+        return dict(made=len(self.made), hits=hits, misses=len(self.made) - hits,
+                    side_ms=side, inline_ms=inline, beside=beside, other=other, equal=len(equal))
+
+
+def _steps_ms(xs):
+    return f"median {np.median(xs):.3f}, max {max(xs):.3f}, sum {sum(xs):.3f}" if xs else "n/a"
+
+
+def _ms(xs):
+    return f"{np.median(xs):.3f}" if xs else "n/a"
+
+
+def check_small_speculation():
+    """The small model on the card at bf16, int8 and float32: one
+    speculative encode against the in-line one (``check_side_encode``),
+    then 100 s of the synthetic audio, en, without timestamps, beam 2, 16
+    new tokens, the vocabulary's specials suppressed (random weights emit
+    timestamp tokens even without timestamps, and the seek then follows
+    the last one: a miss), with FWT_SPEC_ENCODE=0 and =1
+    (``SpeculationProbe``): equal segments, and at least one hit whose
+    states equal the in-line encode of its window."""
+    from faster_whisper_tpu_torch.transcribe import WhisperModel
+
+    cfg, cpu, tok = small_model_parts()
+    audio = synth_audio(100.0, seed=4)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    window = torch.randn((1, cfg.n_mels, 3000), generator=g, device="cuda")
+    for compute_type, k3 in (("bfloat16", "k3"), ("int8", "k3"), ("float32", "k3_f32")):
+        model = WhisperModel.from_parts(cpu, cfg, tok, compute_type=compute_type, device="cuda")
+        check_side_encode(model, window, cfg.n_audio_layer, k3=k3)
+        rows, hits = {}, {}
+        for spec in ("0", "1"):
+            os.environ["FWT_SPEC_ENCODE"] = spec
+            try:
+                with SpeculationProbe(model) as probe:
+                    segments, _ = model.transcribe(audio, language="en", without_timestamps=True,
+                                                   beam_size=2, max_new_tokens=16,
+                                                   suppress_tokens=SMALL_SPECIALS)
+                    rows[spec] = [(s.seek, s.start, s.end, s.tokens, s.avg_logprob) for s in segments]
+            finally:
+                os.environ.pop("FWT_SPEC_ENCODE")
+            hits[spec] = probe.report(cfg.n_audio_layer, k3=k3)["hits"]
+        print(f"small model at {compute_type}, speculation off and on: {len(rows['1'])} segments, "
+              f"equal: {rows['0'] == rows['1']}; hits {hits}")
+        if rows["0"] != rows["1"] or hits["0"] or not hits["1"]:
+            raise AssertionError(f"small model speculation at {compute_type}: hits {hits}, equal "
+                                 f"segments {rows['0'] == rows['1']}")
+
+
+def run_speculation(later, card):
+    """Phase 12a: requests p (150 s, en, without timestamps, beam 5, 128
+    new tokens, temperature 0, bf16), q (p at int8) and a (45 s, the
+    ladder with timestamps), each with FWT_SPEC_ENCODE=0 and then =1: equal
+    segments in each pair, every hit's encoder states equal to the
+    in-line encode of its window, no K1, K2 or K4 launched on the side
+    stream; speculative encodes, hits, misses, K3 launches, wall seconds
+    and ms per step of each run, and the side encode's device ms against
+    the steps that ran beside it.  Returns the counts of the runs."""
+    from faster_whisper_tpu_torch.transcribe import WhisperModel
+
+    cfg, tok = later["cfg"], later["tok"]
+    long_clip = synth_audio(150.0, seed=1)
+    p_kwargs = dict(language="en", without_timestamps=True, beam_size=5, max_new_tokens=128,
+                    temperature=0.0)
+    runs = {}
+    for compute_type in ("bfloat16", "int8"):
+        model = WhisperModel.from_parts(later["params"], cfg, tok, compute_type=compute_type)
+        per_step = ("k1", "k4_bf16") if compute_type == "bfloat16" else ("k2", "k4_int8")
+        window = torch.zeros((1, cfg.n_mels, 3000), device="cuda")
+        window[..., :1500] = 1.0
+        prio = check_side_encode(model, window, cfg.n_audio_layer)
+        print(f"side-stream encode at {compute_type}: equal to the in-line encode, K3 x "
+              f"{cfg.n_audio_layer} and no K1, K2, K4 on the side stream; stream priorities: side "
+              f"{prio[0]}, default {prio[1]} (CUDA's range (least, greatest): "
+              f"{_priority_range()})")
+        requests = [("p" if compute_type == "bfloat16" else "q", long_clip, p_kwargs)]
+        if compute_type == "bfloat16":
+            requests.append(("a", synth_audio(45.0, seed=1), dict(language=None, beam_size=5)))
+        for name, audio, kwargs in requests:
+            rows = {}
+            for spec in ("0", "1"):
+                os.environ["FWT_SPEC_ENCODE"] = spec
+                reset_counts()  # before the probe, which wraps the step counter's function
+                with SpeculationProbe(model) as probe:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    segments, info = model.transcribe(audio, **kwargs)
+                    segments = list(segments)
+                    torch.cuda.synchronize()
+                    seconds = time.perf_counter() - t0
+                counts = read_counts()
+                rep = probe.report(cfg.n_audio_layer)
+                check_segments(segments, info, len(audio) / 16000, cfg.n_vocab)
+                check_counts(counts, per_step=per_step, per_encode="k3", cfg=cfg)
+                runs[f"{name} spec {spec}"] = counts
+                rows[spec] = [(s.seek, s.start, s.end, s.text, s.tokens, s.avg_logprob, s.temperature,
+                               s.no_speech_prob) for s in segments]
+                print(f"request {name} ({compute_type}, {len(audio) / 16000:.0f} s, {kwargs}), "
+                      f"FWT_SPEC_ENCODE={spec}: {len(segments)} segments, {seconds:.3f} s wall, "
+                      f"{counts['steps']} decode steps, {seconds * 1e3 / max(counts['steps'], 1):.2f} ms "
+                      f"per step (wall), {counts['encodes']} encodes, K3 launches {counts['k3']}; "
+                      f"speculative encodes {rep['made']}, hits {rep['hits']} (states equal to the "
+                      f"in-line encode: {rep['equal']} of {rep['hits']}), misses {rep['misses']}; encode "
+                      f"device ms, median: side stream {_ms(rep['side_ms'])} ({len(rep['side_ms'])}), in "
+                      f"line {_ms(rep['inline_ms'])} ({len(rep['inline_ms'])}); device ms between decode "
+                      f"step events: the {len(rep['beside'])} spans overlapping a speculative encode "
+                      f"{_steps_ms(rep['beside'])}, the other {len(rep['other'])} "
+                      f"{_steps_ms(rep['other'])} on {card}")
+            os.environ.pop("FWT_SPEC_ENCODE")
+            print(f"request {name}: segments with speculation off and on equal: {rows['0'] == rows['1']}")
+            if rows["0"] != rows["1"]:
+                raise AssertionError(f"request {name}'s segments differ with speculation on")
+        del model
+        torch.cuda.empty_cache()
+    return runs
+
+
+def check_pipelined_vad(speech, card):
+    """Phase 12b: ``upload_with_vad`` over ``speech`` against
+    ``upload_audio`` and the whole-buffer forward on the card, in turns
+    (serial, pipelined, pipelined, serial) after one warm call of each:
+    the PCM ``torch.equal``, the probabilities' max |diff|, the speech
+    timestamps of the pipeline's options equal.  Returns the max |diff|."""
+    import torch.nn.functional as F
+
+    from faster_whisper_tpu_torch.models.silero import VAD_SLICE_SAMPLES
+    from faster_whisper_tpu_torch.ops.mel import upload_audio
+    from faster_whisper_tpu_torch.vad import (
+        VadOptions,
+        get_vad_model,
+        speech_timestamps_from_probs,
+        upload_with_vad,
+    )
+
+    n = len(speech)
+    expected = n // 512 + 1
+    model = get_vad_model("cuda")
+
+    def serial():
+        audio_dev = upload_audio(speech, "cuda")
+        return audio_dev, model(F.pad(audio_dev, (0, expected * 512 - n))).cpu().numpy()
+
+    def pipelined():
+        return upload_with_vad(speech, device="cuda")
+
+    serial(), pipelined()
+    secs = {"serial": [], "pipelined": []}
+    out = {}
+    for name in ("serial", "pipelined", "pipelined", "serial"):
+        out[name], sec = _synced_seconds(serial if name == "serial" else pipelined)
+        secs[name].append(sec)
+    (a_serial, p_serial), (a_pipe, p_pipe) = out["serial"], out["pipelined"]
+    err = float(np.abs(p_pipe[:expected] - p_serial).max())
+    opts = VadOptions(max_speech_duration_s=30, min_silence_duration_ms=160)
+    ts_serial = speech_timestamps_from_probs(p_serial, n, opts)
+    ts_pipe = speech_timestamps_from_probs(p_pipe, n, opts)
+    print(f"pipelined VAD over {n / 16000:.0f} s ({-(-n // VAD_SLICE_SAMPLES)} slices of "
+          f"{VAD_SLICE_SAMPLES} samples): upload_with_vad {', '.join(f'{s:.4f}' for s in secs['pipelined'])} s, "
+          f"upload_audio + whole-buffer forward {', '.join(f'{s:.4f}' for s in secs['serial'])} s "
+          f"(both with the probabilities back on the host); PCM equal: {torch.equal(a_pipe, a_serial)}; "
+          f"probabilities max|diff| {err:.3e} ({int((p_pipe[:expected] != p_serial).sum())} of {expected} "
+          f"windows differ); speech timestamps equal: {ts_pipe == ts_serial} ({len(ts_pipe)} chunks) "
+          f"on {card}")
+    if not torch.equal(a_pipe, a_serial):
+        raise AssertionError("upload_with_vad's PCM differs from upload_audio's")
+    if ts_pipe != ts_serial:
+        raise AssertionError("the pipelined VAD's speech timestamps differ from the whole-buffer VAD's")
+    if not err <= VAD_PROB_TOL:
+        raise AssertionError(f"the pipelined VAD's probabilities differ by {err:.3e}")
+    return err
+
+
+def run_pipelined_request(later, speech, card):
+    """Phase 12b, request h again under FWT_PIPELINED_VAD=1: its segments
+    must be h's.  Returns its counts."""
+    from faster_whisper_tpu_torch.transcribe import WhisperModel
+
+    cfg = later["cfg"]
+    model = WhisperModel.from_parts(later["params"], cfg, later["tok"])
+    os.environ["FWT_PIPELINED_VAD"] = "1"
+    try:
+        counts, segments, seconds = run_batched(model, "h (FWT_PIPELINED_VAD=1): bf16", speech, cfg)
+    finally:
+        os.environ.pop("FWT_PIPELINED_VAD")
+    check_counts(counts, per_step=("k1", "k4_bf16"), per_encode="k3", cfg=cfg)
+    want = [(s.start, s.end, s.tokens) for s in later["h_segments"]]
+    got = [(s.start, s.end, s.tokens) for s in segments]
+    print(f"request h under FWT_PIPELINED_VAD=1 against request h: equal segments: {got == want} on {card}")
+    if got != want:
+        raise AssertionError("request h's segments differ under FWT_PIPELINED_VAD=1")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _captured(main, argv):
+    """``main(argv)``, its exit code and its standard output (its last line
+    is a JSON object, printed here behind a label rather than bare)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    return rc, out.getvalue().strip().splitlines(), time.perf_counter() - t0
+
+
+def run_tools(later, card):
+    """Phase 12c-e: the acceptance gate in mock mode, the offline warm CLI
+    at large-v3-turbo width, int8, and ``memory_report`` on request i's
+    int8 model beside i's measured peak; each launches on the card.
+    Returns the counts of the gate's and the warm CLI's runs."""
+    from faster_whisper_tpu_torch import precompile, validate
+    from faster_whisper_tpu_torch.transcribe import WhisperModel
+
+    runs = {}
+    reset_counts()
+    rc, lines, sec = _captured(validate.main, ["--mock"])
+    counts = runs["validate"] = read_counts()
+    summary = json.loads(lines[-1])
+    print(f"validate --mock (micro model at widths 128, float32, on the card): exit {rc}, {sec:.3f} s, "
+          f"summary {summary}; launches {counts} on {card}")
+    if rc != 0 or summary["fail"] or summary["pass"] < 5:
+        raise AssertionError(f"validate --mock failed: exit {rc}, {summary}")
+    if not (counts["k3_f32"] and counts["k1_f32"] and counts["k2"] and counts["k4_int8"]):
+        raise AssertionError(f"validate --mock did not run the kernels on the card: {counts}")
+
+    argv = ["--random-weights", "--model", "large-v3-turbo", "--compute-type", "int8",
+            "--max-new-tokens", "128", "--language", "en"]
+    reset_counts()
+    rc, lines, sec = _captured(precompile.main, argv)
+    counts = runs["precompile"] = read_counts()
+    report = json.loads(lines[-1])
+    print(f"precompile {' '.join(argv)}: exit {rc}, {sec:.3f} s, report {report}; launches {counts} "
+          f"on {card}")
+    if rc != 0:
+        raise AssertionError(f"precompile.main exited {rc}")
+    check_counts(counts, per_step=("k2", "k4_int8"), per_encode="k3", cfg=later["cfg"])
+    torch.cuda.empty_cache()
+
+    model = WhisperModel.from_parts(later["params"], later["cfg"], later["tok"], compute_type="int8")
+    rep, sec = _synced_seconds(lambda: model.model.memory_report(batch_size=8, beam_size=5,
+                                                                 max_new_tokens=128))
+    gib = 2.0**30
+
+    def fmt(r):
+        return ", ".join(f"{k} {v / gib:.3f} GiB" for k, v in r.items())
+
+    print(f"memory_report(batch_size=8, beam_size=5, max_new_tokens=128) on request i's int8 model "
+          f"({sec:.3f} s): weights {rep['weights_bytes'] / gib:.3f} GiB; encode: {fmt(rep['encode'])}; "
+          f"decode: {fmt(rep['decode'])}; request i's measured peak {later['i_peak'] / gib:.3f} GiB "
+          f"on {card}")
+    for name in ("encode", "decode"):
+        r = rep[name]
+        if set(r) != {"argument_bytes", "output_bytes", "temp_bytes", "code_bytes", "peak_bytes"} or \
+                not r["peak_bytes"] > r["argument_bytes"] > rep["weights_bytes"] > 0:
+            raise AssertionError(f"memory_report's {name}: {r}")
+    del model
+    torch.cuda.empty_cache()
+    return runs
+
+
 def _fmt(x):
     return "n/a" if x is None else f"{x:.4f} ms"
 
@@ -2143,10 +2586,23 @@ def main():
         phase("word timestamps", t0)
         t0 = time.perf_counter()
         runs["serving"] = run_serving(later, jfk, ct2_int8, card)
-        del later
         phase("serving", t0)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    late = run_speculation(later, card)
+    phase("speculative encode", t0)
+    t0 = time.perf_counter()
+    check_pipelined_vad(speech, card)
+    late["h pipelined"] = run_pipelined_request(later, speech, card)
+    phase("pipelined VAD", t0)
+    t0 = time.perf_counter()
+    late.update(run_tools(later, card))
+    del later
+    phase("gate, warm CLI, memory_report", t0)
+
+    def late_sum(key):
+        return sum(c[key] for c in late.values())
 
     def entry(name, label, source, replaces, launches):
         t = times[label]
@@ -2162,30 +2618,34 @@ def main():
     # the K4 int8 form's error: over int8 codes and over the int4 cross cache's
     errs["K4 int8"] = max(errs["K4 int8"], errs["K4 int8 qmax7"])
     errs["K4 int8 f32"] = max(errs["K4 int8 f32"], errs["K4 int8 qmax7 f32"])
+    # each kernel's launches over every path's counted run: phases 7 and
+    # 9-11 and phase 12's (late_sum)
     kernels = [
         entry("beam_attend_append bf16 (K1)", "K1", "beam_attention.cu", K1_REPLACES,
-              bf16["k1"] + req_h["k1"] + req_j["k1"] + req_l["k1"]),
+              bf16["k1"] + req_h["k1"] + req_j["k1"] + req_l["k1"] + late_sum("k1")),
         entry("beam_attend_append f32 (K1)", "K1 f32", "beam_attention.cu", K1_REPLACES,
-              fp32["k1_f32"]),
+              fp32["k1_f32"] + late_sum("k1_f32")),
         entry("beam_attend_append int8 (K2)", "K2", "beam_attention.cu", K2_REPLACES,
               int8["k2"] + req_i["k2"] + req_k["k2"] + req_m["k2"] + req_n["k2"] + req_o["k2"]
-              + serve["k2"]),
+              + serve["k2"] + late_sum("k2")),
         entry("beam_attend_append int8, f32 activations (K2)", "K2 f32", "beam_attention.cu",
-              K2_REPLACES, int8_f32["k2_f32"]),
+              K2_REPLACES, int8_f32["k2_f32"] + late_sum("k2_f32")),
         entry("mha_flash bf16 (K3)", "K3", "flash_attention.cu", K3_REPLACES,
               bf16["k3"] + int8["k3"] + req_h["k3"] + req_i["k3"] + req_j["k3"] + req_k["k3"]
-              + req_l["k3"] + req_m["k3"] + req_n["k3"] + req_o["k3"] + serve["k3"]),
+              + req_l["k3"] + req_m["k3"] + req_n["k3"] + req_o["k3"] + serve["k3"]
+              + late_sum("k3")),
         entry("mha_flash f32 (K3)", "K3 f32", "flash_attention.cu", K3_REPLACES,
-              fp32["k3_f32"] + int8_f32["k3_f32"]),
+              fp32["k3_f32"] + int8_f32["k3_f32"] + late_sum("k3_f32")),
         entry("cross_attend bf16 (K4a)", "K4 bf16", "cross_attention.cu", K4A_REPLACES,
-              bf16["k4_bf16"] + req_h["k4_bf16"] + req_j["k4_bf16"] + req_l["k4_bf16"]),
+              bf16["k4_bf16"] + req_h["k4_bf16"] + req_j["k4_bf16"] + req_l["k4_bf16"]
+              + late_sum("k4_bf16")),
         entry("cross_attend f32 (K4a)", "K4 f32", "cross_attention.cu", K4A_REPLACES,
-              fp32["k4_f32"]),
+              fp32["k4_f32"] + late_sum("k4_f32")),
         entry("cross_attend int8 (K4b, K4c)", "K4 int8", "cross_attention.cu", K4B_REPLACES,
               int8["k4_int8"] + req_i["k4_int8"] + req_k["k4_int8"] + req_m["k4_int8"]
-              + req_n["k4_int8"] + req_o["k4_int8"] + serve["k4_int8"]),
+              + req_n["k4_int8"] + req_o["k4_int8"] + serve["k4_int8"] + late_sum("k4_int8")),
         entry("cross_attend int8, f32 activations (K4b, K4c)", "K4 int8 f32", "cross_attention.cu",
-              K4B_REPLACES, int8_f32["k4_int8_f32"]),
+              K4B_REPLACES, int8_f32["k4_int8_f32"] + late_sum("k4_int8_f32")),
     ]
     print(f"[phase] total: {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": kernels}))

@@ -27,7 +27,16 @@ Layout:
     int8 form reads as it reads int8 codes.
   * Tokens are recorded per step in position-history tables and the
     hypotheses rebuilt on the host by walking back-pointers.
+
+Since the loop runs inside the call, the JAX package's "right after the
+decode is dispatched" is a point in it: ``after_first_launch`` runs a
+callback once, after the prefill (and, in beam search, the first step) is
+launched and before the host first waits for the device.  The sequential
+path queues its speculative next-window encode there.
 """
+
+import contextlib
+import threading
 
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Sequence, Union
@@ -224,6 +233,33 @@ def _expand_caches(cache0, K: int, kv_int8: bool, cross_qmax: int = 127):
     )
 
 
+# The callback of ``after_first_launch``, per thread: a serving process
+# decodes on several threads.
+_hook = threading.local()
+
+
+@contextlib.contextmanager
+def after_first_launch(fn):
+    """Run ``fn`` once in the next decode loop that this thread runs inside
+    the block, after its prefill (and, in beam search, its first step) is
+    launched and before the host first reads a result back; at the end of
+    the block if no loop got there.  Not at all if the block raises."""
+    _hook.fn = fn
+    try:
+        yield
+    except BaseException:
+        _hook.fn = None
+        raise
+    _fire_after_first_launch()
+
+
+def _fire_after_first_launch():
+    fn = getattr(_hook, "fn", None)
+    if fn is not None:
+        _hook.fn = None
+        fn()
+
+
 def _prefill(params, config, meta, xa, prompt, prompt_len, sot_pos, ctx):
     gather_pos = torch.stack([prompt_len - 1, sot_pos], dim=1)
     first_logits, cache0 = decoder_prefill(
@@ -384,6 +420,7 @@ def beam_search(
         last_tok, penult_tok, ts_max = new_tok, penult_new, ts_new
         done = done_new
         step_i += 1
+        _fire_after_first_launch()
         if bool(done.all()):
             break
 
@@ -457,6 +494,7 @@ def sample(
 
     while True:
         active = ~finished & (lens < cap)
+        _fire_after_first_launch()
         if not bool(active.any()):
             break
         if needs_history:

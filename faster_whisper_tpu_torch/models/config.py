@@ -24,7 +24,7 @@ class WhisperConfig:
     n_text_head: int = 6
     n_text_layer: int = 4
     # (layer, head) pairs of cross-attention heads that track time
-    # alignment (word timestamps, not ported yet), read from checkpoints.
+    # alignment (word timestamps), read from checkpoints.
     alignment_heads: Tuple[Tuple[int, int], ...] = ()
     # None -> infer from the vocabulary size (multilingual vocabs are
     # >= 51865); tests override.

@@ -218,6 +218,19 @@ def _align_forward_post(
     return probs, matrix / len(head_select)
 
 
+def _tensors(tree):
+    """The tensors of a parameter tree or a result: dict values, the
+    fields of ``QuantizedLinear``/``QuantKV`` and tuples, walked in order."""
+    if torch.is_tensor(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _tensors(v)
+
+
 def resolve_token_ids(hf_tokenizer) -> dict:
     """The Whisper special-token layout of a base tokenizer."""
 
@@ -372,6 +385,82 @@ class WhisperEngine:
             kv_int8=self.kv_int8,
             int4=self.int4,
         )
+
+    def memory_report(
+        self,
+        batch_size: int = 8,
+        beam_size: int = 5,
+        max_new_tokens: int = 128,
+        prompt_len: int = 4,
+        sampling_temperature: float = 0.0,
+    ) -> dict:
+        """Device memory of the engine's two big programs, the encode and
+        the decode loop, at the given shapes, with the JAX package's keys:
+        ``weights_bytes``, then ``encode`` and ``decode``, each None or a
+        dict of ``argument_bytes``, ``output_bytes``, ``temp_bytes``,
+        ``code_bytes`` and ``peak_bytes``.
+
+        The JAX package reads XLA's static analysis of the compiled
+        programs, and nothing runs.  PyTorch has no such analysis, so on
+        the card this one runs them: an encode of zeros (batch_size,
+        n_mels, 3000), and a decode (``generate_dispatch`` and
+        ``generate_collect``) of ``batch_size`` prompts of ``prompt_len``
+        start tokens over zero encoder states with this engine's
+        ``kv_int8`` and ``int4``, each after ``torch.cuda.synchronize`` and
+        ``reset_peak_memory_stats``.  ``argument_bytes`` is the weights and
+        the inputs; ``temp_bytes`` the peak of allocated memory during the
+        run minus what was allocated before it, which holds the outputs as
+        well as every temporary (caches, beam state, activations);
+        ``peak_bytes`` is ``argument_bytes + temp_bytes``; ``code_bytes``
+        is the size of the loaded kernel libraries.  On the CPU both
+        programs are None, as on a JAX backend without the analysis; the
+        weights are counted on either."""
+        from faster_whisper_tpu_torch.ops import _build
+
+        weights_bytes = sum(t.numel() * t.element_size() for t in _tensors(self.params))
+        if self.device.type != "cuda":
+            return {"weights_bytes": int(weights_bytes), "encode": None, "decode": None}
+
+        dev = self.device
+        cfg = self.config
+
+        def measure(run, input_bytes):
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = torch.cuda.memory_allocated(dev)
+            out = run()
+            torch.cuda.synchronize(dev)
+            temp = torch.cuda.max_memory_allocated(dev) - before
+            return out, {
+                "argument_bytes": int(weights_bytes + input_bytes),
+                "output_bytes": int(sum(t.numel() * t.element_size() for t in _tensors(out))),
+                "temp_bytes": int(temp),
+                "code_bytes": 0,  # below, once the runs have loaded the kernels
+                "peak_bytes": int(weights_bytes + input_bytes + temp),
+            }
+
+        mel = torch.zeros((batch_size, cfg.n_mels, 3000), dtype=torch.float32, device=dev)
+        xa, enc = measure(lambda: self.encode(mel), mel.numel() * mel.element_size())
+        del mel
+        xa = torch.zeros_like(xa)
+        prompt = [self.sot_id] * prompt_len
+
+        def decode():
+            pending = self.generate_dispatch(
+                xa, [prompt] * batch_size, beam_size=beam_size,
+                max_length=prompt_len + max_new_tokens,
+                sampling_temperature=sampling_temperature,
+            )
+            self.generate_collect(pending)
+            return pending.arrays
+
+        _, dec = measure(decode, xa.numel() * xa.element_size() + batch_size * prompt_len * 8)
+        code_bytes = sum(
+            _build.library_path(src).stat().st_size for src in list(_build._libs)
+            if src.endswith(".cu")
+        )
+        enc["code_bytes"] = dec["code_bytes"] = int(code_bytes)
+        return {"weights_bytes": int(weights_bytes), "encode": enc, "decode": dec}
 
     def detect_language(self, encoder_output: torch.Tensor):
         """Per-row [(language token, probability)], most probable first."""

@@ -39,6 +39,9 @@ from faster_whisper_tpu_torch.utils import exact_float32, resolve_device
 
 _WINDOW = 512
 _CONTEXT = 64
+# One slice of the pipelined upload (vad.py::upload_with_vad): 2048
+# windows, 65.5 s at 16 kHz, the JAX package's slice.
+VAD_SLICE_SAMPLES = 2048 * _WINDOW
 
 # ONNX stacks the LSTM gates as i, o, f, c; PyTorch as i, f, g(=c), o.
 _ONNX_TO_TORCH_GATES = (0, 2, 3, 1)
@@ -112,10 +115,14 @@ class SileroVAD(nn.Module):
         windows = x.view(-1, _WINDOW)
         context = torch.cat([windows.new_zeros(1, _CONTEXT), windows[:-1, -_CONTEXT:]])
         with torch.no_grad(), exact_float32():
-            return self._forward_windows(torch.cat([context, windows], dim=1))
+            return self._forward_windows(torch.cat([context, windows], dim=1))[0]
 
-    def _forward_windows(self, windows: torch.Tensor) -> torch.Tensor:
-        """(N, 576) windows -> probabilities (N,)."""
+    def _forward_windows(self, windows: torch.Tensor, state=None):
+        """(N, 576) windows and the LSTM's (h, c) before the first of
+        them (None: zeros) -> (probabilities (N,), (h, c) after the last).
+        The per-window arithmetic does not depend on N, so windows run in
+        slices with the state carried give the whole-buffer forward's
+        probabilities."""
         x = F.pad(windows[:, None, :], (128, 128), mode="reflect")[:, 0]  # (N, 832)
         frames = x.unfold(1, 256, 128)[:, 1:]  # (N, 4, 256) at offsets 128..512
         spec = frames @ self.stft_basis.T  # (N, 4, 258)
@@ -124,5 +131,38 @@ class SileroVAD(nn.Module):
         for i, stride in enumerate((1, 2, 2, 1)):
             h = F.relu(F.conv1d(h, getattr(self, f"conv{i}_w"), getattr(self, f"conv{i}_b"),
                                 stride=stride, padding=1))
-        hs, _ = self.lstm(h[:, None, :, 0])  # (N, 1, 128): N time steps, batch 1
-        return torch.sigmoid(self.out(F.relu(hs[:, 0])))[:, 0]
+        hs, state = self.lstm(h[:, None, :, 0], state)  # (N, 1, 128): N time steps, batch 1
+        # On the CPU a matmul and an elementwise loop take the last rows of
+        # a buffer down other paths than the rest (a ragged GEMM tile, a
+        # scalar remainder), which round differently; so the output layer
+        # is a per-row product and sum, and the sigmoid runs over a length
+        # padded to a multiple of 64.  A window's probability then does not
+        # depend on where its buffer ends (the pipelined upload's slices
+        # against the whole buffer).
+        logits = (F.relu(hs[:, 0]) * self.out.weight[0]).sum(dim=-1) + self.out.bias[0]
+        n = logits.shape[0]
+        return torch.sigmoid(F.pad(logits, (0, -n % 64)))[:n], state
+
+
+def _vad_slice_step(model: SileroVAD, q_slice: torch.Tensor, tail: torch.Tensor, state):
+    """One slice of the pipelined upload's VAD forward, on the model's
+    device: int16 samples (a multiple of 512), the last 64 samples of the
+    previous slice (zeros before the first) and the LSTM state carried
+    from it (None before the first).  Returns (probabilities, the new
+    tail, the new state, the slice's float32 samples): the samples are
+    ``ops/mel.py::upload_audio``'s own values for the slice (``q / 32768``
+    in float32).  The caller holds ``torch.no_grad`` and
+    ``utils.exact_float32``."""
+    audio = q_slice.to(torch.float32) * (1.0 / 32768.0)
+    windows = audio.view(-1, _WINDOW)
+    context = torch.cat([tail[None], windows[:-1, -_CONTEXT:]])
+    probs, state = model._forward_windows(torch.cat([context, windows], dim=1), state)
+    return probs, windows[-1, -_CONTEXT:], state, audio
+
+
+def _write_slice(buf: torch.Tensor, sl: torch.Tensor, off: int) -> None:
+    """Write one slice's samples into the assembled device buffer at
+    ``off``, in place; the zero padding of the last slice past the
+    buffer's end is dropped."""
+    n = min(sl.shape[0], buf.shape[0] - off)
+    buf[off : off + n] = sl[:n]

@@ -12,6 +12,9 @@ language tokens, translate/transcribe, sot_lm, sot_prev, no_speech,
 no_timestamps, 1501 timestamps), as special added tokens.  It has no BPE
 merges, so every byte of the text is one token.
 
+``build_test_model`` is a random-weight micro ``WhisperModel``, the
+acceptance gate's ``--mock`` model (``validate.py``).
+
 The checkpoint writers build model directories from a parameter tree:
 ``write_ct2`` / ``serialize_ct2`` a CTranslate2 ``model.bin`` (float32,
 float16, or int8 linear weights with per-row scales), ``tokenizer_json``
@@ -59,6 +62,34 @@ def build_synthetic_tokenizer(n_timestamps: int = 1501, base_vocab: int = 256):
 
 def synthetic_vocab_size(n_timestamps: int = 1501, base_vocab: int = 256) -> int:
     return base_vocab + 2 + len(_LANGUAGE_CODES) + 6 + n_timestamps
+
+
+def build_test_model(seed: int = 0, dtype: str = "float32", device="cuda"):
+    """A complete ``WhisperModel`` over the micro config
+    (``models/config.py::tiny_test_config``) and the synthetic tokenizer,
+    with random weights from ``seed`` (``models/load.py::random_params``)
+    at ``dtype`` ("float32" or "bfloat16", also the compute type), on
+    ``device`` (the card by default).  Its text is meaningless, but every
+    stage of the pipeline runs as it would with released weights.  On the
+    card the micro widths double to 128 (two heads of 64): the card's
+    attention kernels take heads of 64 only."""
+    import dataclasses
+
+    import torch
+
+    from faster_whisper_tpu_torch.models.config import tiny_test_config
+    from faster_whisper_tpu_torch.models.load import random_params
+    from faster_whisper_tpu_torch.transcribe import WhisperModel
+    from faster_whisper_tpu_torch.utils import resolve_device
+
+    dev = resolve_device(device)
+    config = tiny_test_config()
+    if dev.type == "cuda":
+        config = dataclasses.replace(config, n_audio_state=128, n_text_state=128)
+    params = random_params(config, seed=seed, dtype=getattr(torch, dtype), device=dev)
+    return WhisperModel.from_parts(
+        params, config, build_synthetic_tokenizer(), compute_type=dtype, device=dev
+    )
 
 
 # ---------------------------------------------------------------------------

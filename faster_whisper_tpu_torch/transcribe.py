@@ -7,8 +7,11 @@ Counterpart of ``faster_whisper_tpu/transcribe.py``:
   ladder and the split of decoded tokens into timestamped segments, with
   the reference's decode policy reproduced as the JAX package reproduces
   it.  Log-mel runs on the host; each window is sliced on the device.
+  While a window decodes, the next window is encoded ahead on a side
+  stream (``FWT_SPEC_ENCODE``, on by default).
 - ``BatchedInferencePipeline.transcribe``: the audio crosses to the device
-  once (on the int16 grid), the Silero VAD cuts it into speech chunks of
+  once (on the int16 grid; in slices under the VAD with
+  ``FWT_PIPELINED_VAD=1``), the Silero VAD cuts it into speech chunks of
   at most 30 s, their log-mel runs on the device, and batches of chunks
   are encoded and beam-decoded together.
 - ``vad_filter`` on both, ``restore_speech_timestamps``, and
@@ -61,6 +64,7 @@ import torch
 
 from faster_whisper_tpu_torch.audio import decode_audio, pad_or_trim
 from faster_whisper_tpu_torch.feature_extractor import FeatureExtractor
+from faster_whisper_tpu_torch.generation.generate import after_first_launch
 from faster_whisper_tpu_torch.ops.mel import assemble_segments, extract_window, upload_audio
 from faster_whisper_tpu_torch.tokenizer import _LANGUAGE_CODES, Tokenizer
 from faster_whisper_tpu_torch.utils import (
@@ -69,13 +73,17 @@ from faster_whisper_tpu_torch.utils import (
     format_timestamp,
     get_end,
     get_logger,
+    phase_timer,
     resolve_device,
+    side_stream,
 )
 from faster_whisper_tpu_torch.vad import (
     SpeechTimestampsMap,
     VadOptions,
     collect_chunks,
     get_speech_timestamps,
+    speech_timestamps_from_probs,
+    upload_with_vad,
 )
 
 
@@ -227,6 +235,44 @@ def _model_device(device, device_index: int) -> torch.device:
     if str(device).split(":")[0] not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device: {device!r} (the card, 'cuda', or 'cpu')")
     return resolve_device(device)
+
+
+class _SideEncode:
+    """A window encoded ahead of the window that will read it.
+
+    On the card the encode runs on the device's speculative-encode stream
+    (``utils.side_stream``): it first waits for an event recorded on the
+    caller's stream after
+    the window was made, and the window is recorded to the side stream so
+    that its memory outlives the encode; an event recorded after the
+    encode marks its states ready.  ``result()`` makes the caller's stream
+    wait for that event and records the states to it.  On the CPU there is
+    one stream and the encode runs in line."""
+
+    __slots__ = ("output", "done")
+
+    def __init__(self, encode, window: torch.Tensor):
+        dev = window.device
+        self.done = None
+        if dev.type != "cuda":
+            self.output = encode(window)
+            return
+        side = side_stream(dev, "speculative encode")
+        made = torch.cuda.Event()
+        made.record(torch.cuda.current_stream(dev))
+        side.wait_event(made)
+        window.record_stream(side)
+        with torch.cuda.stream(side):
+            self.output = encode(window)
+            self.done = torch.cuda.Event()
+            self.done.record(side)
+
+    def result(self) -> torch.Tensor:
+        if self.done is not None:
+            stream = torch.cuda.current_stream(self.output.device)
+            stream.wait_event(self.done)
+            self.output.record_stream(stream)
+        return self.output
 
 
 class WhisperModel:
@@ -591,7 +637,10 @@ class WhisperModel:
             hotwords=hotwords,
         )
 
-        segments = self.generate_segments(features, tokenizer, options, log_progress)
+        encoder_output = None
+        segments = self.generate_segments(
+            features, tokenizer, options, log_progress, encoder_output
+        )
 
         if speech_chunks:
             segments = restore_speech_timestamps(segments, speech_chunks, sampling_rate)
@@ -671,11 +720,23 @@ class WhisperModel:
         tokenizer: Tokenizer,
         options: TranscriptionOptions,
         log_progress,
+        encoder_output=None,
     ) -> Iterable[Segment]:
         """The sequential seek loop: one encode and one fallback ladder per
         30 s window, yielding segments as they are decoded.  With word
         timestamps each window is aligned after its decode, and the seek
-        follows the last word's end."""
+        follows the last word's end.  A caller's ``encoder_output`` serves
+        the first window when it starts at frame 0.
+
+        Speculative next-window encode: while a window decodes, the window
+        that follows a full-window advance (``seek + segment_size``, what
+        no-speech skips and single-timestamp endings give) is encoded
+        ahead (``generate_with_fallback(after_dispatch=)``).  On the card
+        that encode runs on a side stream beside the decode; the next
+        window takes it only if its seek is the one predicted, so a miss
+        costs device time and changes no output.  Off with
+        ``word_timestamps`` or ``multilingual`` (other device work follows
+        each decode there) and under ``FWT_SPEC_ENCODE=0``."""
         content_frames = features.shape[-1] - 1
         content_duration = float(content_frames * self.feature_extractor.time_per_frame)
         nb_max_frames = self.feature_extractor.nb_max_frames
@@ -712,6 +773,13 @@ class WhisperModel:
         )
         last_speech_timestamp = 0.0
 
+        speculate = (
+            not options.word_timestamps
+            and not options.multilingual
+            and os.environ.get("FWT_SPEC_ENCODE", "1") != "0"
+        )
+        spec_seek, spec_output = None, None
+
         while clip_idx < len(seek_clips):
             seek_clip_start, seek_clip_end = seek_clips[clip_idx]
             if seek_clip_end > content_frames:
@@ -737,7 +805,13 @@ class WhisperModel:
                 )
 
             previous_tokens = all_tokens[prompt_reset_since:]
-            encoder_output = self.encode(segment)
+
+            if seek > 0 or encoder_output is None:
+                if spec_seek == seek and spec_output is not None:
+                    encoder_output = spec_output.result()  # speculation hit
+                else:
+                    encoder_output = self.encode(segment)
+            spec_seek, spec_output = None, None
 
             if options.multilingual:
                 results = self.model.detect_language(encoder_output)
@@ -754,12 +828,27 @@ class WhisperModel:
                 hotwords=options.hotwords,
             )
 
+            def _speculative_encode(
+                seek=seek, segment_size=segment_size, seek_clip_end=seek_clip_end,
+            ):
+                pred = seek + segment_size
+                if pred >= seek_clip_end or pred >= content_frames:
+                    return
+                pred_size = min(nb_max_frames, content_frames - pred, seek_clip_end - pred)
+                pred_window = extract_window(features_padded, pred, pred_size, nb_max_frames)
+                nonlocal spec_seek, spec_output
+                spec_output = _SideEncode(self.encode, pred_window)
+                spec_seek = pred
+
             (
                 result,
                 avg_logprob,
                 temperature,
                 compression_ratio,
-            ) = self.generate_with_fallback(encoder_output, prompt, tokenizer, options)
+            ) = self.generate_with_fallback(
+                encoder_output, prompt, tokenizer, options,
+                after_dispatch=_speculative_encode if speculate else None,
+            )
 
             if options.no_speech_threshold is not None:
                 should_skip = result.no_speech_prob > options.no_speech_threshold
@@ -905,13 +994,21 @@ class WhisperModel:
         prompt: List[int],
         tokenizer: Tokenizer,
         options: TranscriptionOptions,
+        after_dispatch=None,
     ):
         """The temperature-fallback ladder: decode at each temperature in
         turn until the result passes the compression-ratio and log-prob
         tests.  Once a rung has failed and every remaining rung samples,
         the remaining rungs run as one batched call (a row per rung, each
         with its own temperature and generator), which picks the same
-        result as running them in turn."""
+        result as running them in turn.
+
+        ``after_dispatch`` (optional, called at most once) runs right after
+        the first decode call is launched: inside its loop, once the
+        prefill is queued and before the host first waits for the device
+        (``generation/generate.py::after_first_launch``), whether that call
+        is a serial rung or the batched tail.  The seek loop queues the
+        speculative next-window encode there."""
         decode_result = None
         all_results = []
         below_cr_threshold_results = []
@@ -945,6 +1042,14 @@ class WhisperModel:
             max_initial_timestamp_index=max_initial_timestamp_index,
         )
 
+        def decode(*args, **kwargs):
+            nonlocal after_dispatch
+            hook, after_dispatch = after_dispatch, None
+            if hook is None:
+                return self.model.generate(*args, **kwargs)
+            with after_first_launch(hook):
+                return self.model.generate(*args, **kwargs)
+
         def rung_results():
             """Yield (result, temperature) in ladder order, lazily."""
             temps = list(options.temperatures)
@@ -952,7 +1057,7 @@ class WhisperModel:
                 tail = temps[i:]
                 if len(tail) > 1 and all(t > 0 for t in tail) and encoder_output.shape[0] == 1:
                     n = len(tail)
-                    results = self.model.generate(
+                    results = decode(
                         encoder_output.expand((n,) + tuple(encoder_output.shape[1:])),
                         [prompt] * n,
                         **base_kwargs,
@@ -972,9 +1077,7 @@ class WhisperModel:
                     }
                 else:
                     kwargs = {"beam_size": options.beam_size, "patience": options.patience}
-                yield self.model.generate(
-                    encoder_output, [prompt], **base_kwargs, **kwargs
-                )[0], temperature
+                yield decode(encoder_output, [prompt], **base_kwargs, **kwargs)[0], temperature
 
         temperature = options.temperatures[-1]
         for result, temperature in rung_results():
@@ -1484,7 +1587,8 @@ class BatchedInferencePipeline:
                 f"so that their combined length is less that {self.model.max_length}."
             )
 
-        encoder_output = self.model.encode(features)
+        with phase_timer("encode dispatch"):
+            encoder_output = self.model.encode(features)
         prompts = [prompt.copy() for _ in range(batch_size)]
 
         if options.multilingual:
@@ -1496,25 +1600,28 @@ class BatchedInferencePipeline:
             for i, language_token in enumerate(language_tokens):
                 prompts[i][language_token_index] = language_token
 
-        pending = self.model.model.generate_dispatch(
-            encoder_output,
-            prompts,
-            beam_size=options.beam_size,
-            patience=options.patience,
-            length_penalty=options.length_penalty,
-            max_length=max_length,
-            suppress_blank=options.suppress_blank,
-            suppress_tokens=options.suppress_tokens,
-            sampling_temperature=options.temperatures[0],
-            repetition_penalty=options.repetition_penalty,
-            no_repeat_ngram_size=options.no_repeat_ngram_size,
-        )
+        with phase_timer("decode dispatch"):
+            pending = self.model.model.generate_dispatch(
+                encoder_output,
+                prompts,
+                beam_size=options.beam_size,
+                patience=options.patience,
+                length_penalty=options.length_penalty,
+                max_length=max_length,
+                suppress_blank=options.suppress_blank,
+                suppress_tokens=options.suppress_tokens,
+                sampling_temperature=options.temperatures[0],
+                repetition_penalty=options.repetition_penalty,
+                no_repeat_ngram_size=options.no_repeat_ngram_size,
+            )
         return encoder_output, pending
 
     def _collect_segment_batch(self, pending, options: TranscriptionOptions):
         """Fetch the decoded sequences and unpack them."""
+        with phase_timer("decode collect"):
+            results = self.model.model.generate_collect(pending)
         output = []
-        for result in self.model.model.generate_collect(pending):
+        for result in results:
             seq_len = len(result.sequences_ids[0])
             cum_logprob = result.scores[0] * (seq_len ** options.length_penalty)
             output.append(
@@ -1594,8 +1701,21 @@ class BatchedInferencePipeline:
         chunk_length = chunk_length or model.feature_extractor.chunk_length
 
         # One host->device transfer on the int16 grid feeds both the VAD and
-        # the speech concat that the features are computed from.
-        audio_dev = upload_audio(audio, model.device)
+        # the speech concat that the features are computed from.  Opt-in
+        # (FWT_PIPELINED_VAD=1): the transfer in slices on a copy stream,
+        # the VAD forward on each slice as it lands (vad.upload_with_vad).
+        vad_probs = None
+        if (
+            not clip_timestamps
+            and vad_filter
+            and len(audio)
+            and os.environ.get("FWT_PIPELINED_VAD", "0") == "1"
+        ):
+            with phase_timer("pcm upload + vad dispatch (pipelined)"):
+                audio_dev, vad_probs = upload_with_vad(audio, device=model.device)
+        else:
+            with phase_timer("pcm upload"):
+                audio_dev = upload_audio(audio, model.device)
 
         if not clip_timestamps:
             if vad_filter:
@@ -1610,7 +1730,13 @@ class BatchedInferencePipeline:
                     vad_parameters = VadOptions(
                         **vad_parameters, max_speech_duration_s=chunk_length
                     )
-                clip_timestamps = get_speech_timestamps(audio_dev, vad_parameters)
+                with phase_timer("vad (compile+forward+state machine)"):
+                    if vad_probs is None:
+                        clip_timestamps = get_speech_timestamps(audio_dev, vad_parameters)
+                    else:
+                        clip_timestamps = speech_timestamps_from_probs(
+                            vad_probs, len(audio), vad_parameters, sampling_rate
+                        )
             elif duration < chunk_length:
                 clip_timestamps = [{"start": 0, "end": audio.shape[0]}]
             else:
@@ -1663,14 +1789,16 @@ class BatchedInferencePipeline:
         chunk_lengths = [len(c) for c in audio_chunks]
         if duration_after_vad:
             n_total = len(audio)  # numpy slicing clamps; match it
-            base_audio = assemble_segments(
-                audio_dev,
-                [(min(c["start"], n_total), min(c["end"], n_total)) for c in clip_timestamps],
-            )
+            with phase_timer("assemble speech concat"):
+                base_audio = assemble_segments(
+                    audio_dev,
+                    [(min(c["start"], n_total), min(c["end"], n_total)) for c in clip_timestamps],
+                )
             chunk_starts = np.concatenate([[0], np.cumsum(chunk_lengths)[:-1]])
-            features = model.feature_extractor.chunk_features(
-                base_audio, chunk_starts, chunk_lengths
-            )  # (N, n_mels, 3000), already window-padded
+            with phase_timer("chunked mel features"):
+                features = model.feature_extractor.chunk_features(
+                    base_audio, chunk_starts, chunk_lengths
+                )  # (N, n_mels, 3000), already window-padded
         else:
             features = []
 

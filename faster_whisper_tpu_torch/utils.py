@@ -1,14 +1,18 @@
 """Host-side helpers: the model registry and its local-cache lookup,
-timestamps, logging, device selection, the float32 scope of the feature
-paths and ``get_end`` of word timestamps."""
+timestamps, logging, phase stamps (``phase_timer``), device selection, the
+side streams of the speculative encode and the pipelined upload,
+the float32 scope of the feature paths and ``get_end`` of word
+timestamps."""
 
 import contextlib
 import logging
 import os
 import re
+import sys
 import threading
+import time
 
-from typing import List, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -116,6 +120,47 @@ def get_logger():
     return logging.getLogger("faster_whisper_tpu_torch")
 
 
+_phase_t0 = None
+
+
+class phase_timer:
+    """Stamped phase logging for cold-start diagnosis, enabled with
+    FWT_PHASE_LOG=1.  Each ``with phase_timer("vad"):`` block prints one
+    line to stderr when it closes: its elapsed seconds and the offset
+    since the first phase of the process, so a run that is cut short
+    still shows where its time went.
+
+    The seconds are host time.  On the card, kernels run asynchronously:
+    a block that only launches work (``"encode dispatch"``) stamps the
+    launches, and a block that reads a result back (``"decode collect"``)
+    also waits for the work queued before it.  The block synchronizes
+    nothing itself, so timing changes nothing on the device path."""
+
+    __slots__ = ("name", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        global _phase_t0
+        self.t0 = time.perf_counter()
+        if _phase_t0 is None:
+            _phase_t0 = self.t0
+        return self
+
+    def __exit__(self, *exc):
+        if os.environ.get("FWT_PHASE_LOG", "0") == "0":
+            return False
+        t1 = time.perf_counter()
+        print(
+            f"# phase {self.name}: {t1 - self.t0:.2f}s"
+            f" (at +{t1 - _phase_t0:.1f}s)",
+            file=sys.stderr,
+            flush=True,
+        )
+        return False
+
+
 def resolve_device(device="cuda") -> torch.device:
     """The device that model code runs on.
 
@@ -130,6 +175,23 @@ def resolve_device(device="cuda") -> torch.device:
             "on the host"
         )
     return dev
+
+
+# (device, use) -> a CUDA stream beside the default one
+_streams: Dict[Tuple[torch.device, str], "torch.cuda.Stream"] = {}
+
+
+def side_stream(device: torch.device, use: str) -> "torch.cuda.Stream":
+    """The CUDA stream of ``device`` kept for ``use`` (the speculative
+    encode, the pipelined upload's copies), made at first use.  Its
+    priority is 0, CUDA's least, which is also the default stream's, on
+    which the decode runs: none is lower, and the decode stays on the
+    default stream, which K1/K2/K4's per-device buffers assume."""
+    key = (device, use)
+    stream = _streams.get(key)
+    if stream is None:
+        stream = _streams.setdefault(key, torch.cuda.Stream(device, priority=0))
+    return stream
 
 
 # The refusal of a feature that the port does not have yet names its item.

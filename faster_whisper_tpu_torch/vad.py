@@ -11,13 +11,15 @@ the state machine runs on the host in native code
 package's ``vad_native.py``), whose plain version is the Python loop
 ``_hysteresis_py``.
 
-Not ported (ROADMAP.md, Queue 1 item 6): the pipelined sliced upload
-(``upload_with_vad``).
+``upload_with_vad`` is the opt-in pipelined form (``FWT_PIPELINED_VAD=1``):
+the int16 PCM crosses to the card in slices on a copy stream, and the VAD
+forward runs on each slice as it lands, with the LSTM state carried.
 """
 
 import bisect
 import ctypes
 import functools
+import os
 
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from faster_whisper_tpu_torch.utils import resolve_device
+from faster_whisper_tpu_torch.utils import exact_float32, phase_timer, resolve_device, side_stream
 
 
 @dataclass
@@ -52,6 +54,80 @@ class VadOptions:
     speech_pad_ms: int = 400
 
 
+def upload_with_vad(audio: np.ndarray, return_audio: bool = True, device="cuda"):
+    """Pipelined PCM upload and Silero forward.
+
+    The PCM goes to ``device`` on the int16 grid in slices of
+    ``models/silero.py::VAD_SLICE_SAMPLES`` (2048 windows), and the VAD
+    forward runs on each slice as it lands (the conv tower on its windows,
+    the LSTM with its state and the 64-sample context carried from the
+    slice before), so the forward of one slice overlaps the copy of the
+    next.  On the card the int16 samples sit in one pinned host buffer,
+    each slice is copied ``non_blocking`` on a copy stream of its own and
+    recorded with an event, which the forward on the caller's stream
+    waits for; each dequantized slice is written into one preallocated
+    device buffer.  On the CPU the same steps run in line.
+
+    Opt-in (``FWT_PIPELINED_VAD=1`` in ``BatchedInferencePipeline`` and
+    ``get_speech_timestamps``), default off, as in the JAX package.
+
+    Returns ``(audio_dev, probs)``: ``audio_dev`` equal to
+    ``ops/mel.py::upload_audio(audio, device)`` (None when
+    ``return_audio`` is false), and ``probs`` a host float32 array of at
+    least ``len(audio) // 512 + 1`` window probabilities, those of the
+    whole-buffer forward.  Runs inside ``utils.exact_float32``.
+    """
+    from faster_whisper_tpu_torch.models.silero import (
+        _CONTEXT,
+        _WINDOW,
+        VAD_SLICE_SAMPLES,
+        _vad_slice_step,
+        _write_slice,
+    )
+
+    dev = resolve_device(device)
+    model = get_vad_model(dev)
+    n = len(audio)
+    n_slices = max(1, -(-n // VAD_SLICE_SAMPLES))
+    total = n_slices * VAD_SLICE_SAMPLES
+    expected_windows = n // _WINDOW + 1
+    cuda = dev.type == "cuda"
+
+    q = torch.zeros(total, dtype=torch.int16, pin_memory=cuda)
+    q[:n] = torch.from_numpy(
+        np.clip(np.round(np.asarray(audio) * 32768.0), -32768, 32767).astype(np.int16)
+    )
+    audio_dev = torch.empty(n, dtype=torch.float32, device=dev) if return_audio else None
+    tail = torch.zeros(_CONTEXT, dtype=torch.float32, device=dev)
+    state = None
+    probs = []
+    if cuda:
+        compute = torch.cuda.current_stream(dev)
+        copier = side_stream(dev, "pcm upload")
+    with torch.no_grad(), exact_float32():
+        for off in range(0, total, VAD_SLICE_SAMPLES):
+            if cuda:
+                with torch.cuda.stream(copier):
+                    q_slice = q[off : off + VAD_SLICE_SAMPLES].to(dev, non_blocking=True)
+                    landed = torch.cuda.Event()
+                    landed.record(copier)
+                compute.wait_event(landed)
+                q_slice.record_stream(compute)
+            else:
+                q_slice = q[off : off + VAD_SLICE_SAMPLES]
+            p, tail, state, samples = _vad_slice_step(model, q_slice, tail, state)
+            probs.append(p)
+            if return_audio:
+                _write_slice(audio_dev, samples, off)
+        if total < expected_windows * _WINDOW:
+            # n is a whole number of slices: the reference pads one more
+            # window past the end; one zero slice, made on the device,
+            # gives its probability
+            zero = torch.zeros(VAD_SLICE_SAMPLES, dtype=torch.int16, device=dev)
+            probs.append(_vad_slice_step(model, zero, tail, state)[0])
+    return audio_dev, torch.cat(probs).cpu().numpy()
+
+
 def get_speech_timestamps(
     audio,
     vad_options: Optional[VadOptions] = None,
@@ -66,12 +142,47 @@ def get_speech_timestamps(
     array, whose VAD runs on ``device``, or a 1-D tensor already on a
     device (the batched pipeline's shared upload), whose VAD runs there.
     Both go through the same int16 grid (models/silero.py), so both give
-    the same decisions.
+    the same decisions.  Under ``FWT_PIPELINED_VAD=1`` a numpy array takes
+    the pipelined sliced upload (``upload_with_vad``), whose decisions
+    are the same.
     """
     if vad_options is None:
         vad_options = VadOptions(**kwargs)
 
     window = 512
+    n_samples = len(audio)
+    # the reference pads to a whole window past the end, a full one when
+    # the length is already a multiple
+    expected_windows = n_samples // window + 1
+    if (
+        not torch.is_tensor(audio)
+        and n_samples
+        and os.environ.get("FWT_PIPELINED_VAD", "0") == "1"
+    ):
+        _, probs = upload_with_vad(audio, return_audio=False, device=device)
+        with phase_timer("vad probs pull"):
+            probs = probs[:expected_windows]
+    else:
+        if not torch.is_tensor(audio):
+            audio = torch.as_tensor(np.asarray(audio, np.float32), device=resolve_device(device))
+        padded = F.pad(audio.to(torch.float32), (0, expected_windows * window - n_samples))
+        with phase_timer("vad forward (compile+exec+probs pull)"):
+            probs = get_vad_model(audio.device)(padded).cpu().numpy()
+    return speech_timestamps_from_probs(probs, n_samples, vad_options, sampling_rate)
+
+
+def speech_timestamps_from_probs(
+    probs: np.ndarray,
+    n_samples: int,
+    vad_options: VadOptions,
+    sampling_rate: int = 16000,
+) -> List[dict]:
+    """``get_speech_timestamps`` from the window probabilities of
+    ``n_samples`` samples: the hysteresis state machine and the padding of
+    the chunks.  Probabilities past the reference's padded window are
+    ignored."""
+    window = 512
+    probs = probs[: n_samples // window + 1]
     threshold = vad_options.threshold
     neg_threshold = vad_options.neg_threshold
     if neg_threshold is None:
@@ -84,15 +195,6 @@ def get_speech_timestamps(
     )
     min_silence_samples = sampling_rate * vad_options.min_silence_duration_ms / 1000
     min_silence_at_max_speech = sampling_rate * 98 / 1000
-
-    if not torch.is_tensor(audio):
-        audio = torch.as_tensor(np.asarray(audio, np.float32), device=resolve_device(device))
-    n_samples = audio.shape[0]
-    # the reference pads to a whole window past the end, a full one when
-    # the length is already a multiple
-    expected_windows = n_samples // window + 1
-    padded = F.pad(audio.to(torch.float32), (0, expected_windows * window - n_samples))
-    probs = get_vad_model(audio.device)(padded).cpu().numpy()
 
     speeches = hysteresis_native(
         probs, window, threshold, neg_threshold, min_speech_samples,

@@ -173,3 +173,42 @@ def test_wrappers_count_launches_and_reject_what_the_kernels_do_not_take(card):
             with pytest.raises(TypeError):  # a raw cache in another dtype than q
                 other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
                 cross_attend(layer, q, ck.to(other), cv.to(other))
+
+
+def test_speculative_encode_on_the_side_stream_equals_the_in_line_encode(card):
+    """A small model at bf16, int8 and float32: the side stream's encode is
+    ``torch.equal`` to the in-line one and launches K3 and no K1, K2 or
+    K4; with speculation on, a sequential request gives the segments it
+    gives with speculation off, with at least one hit."""
+    chip_smoke.check_small_speculation()
+
+
+def test_upload_with_vad_on_the_card_equals_the_serial_upload(card):
+    """``upload_with_vad`` over ``docker/jfk.flac`` tiled to 150 s (three
+    slices): the PCM equal to ``upload_audio``'s, the probabilities within
+    the VAD's tolerance of the whole-buffer forward, equal speech
+    timestamps."""
+    jfk, speech = chip_smoke.tiled_speech(150.0)
+    assert chip_smoke.check_pipelined_vad(speech, card) <= chip_smoke.VAD_PROB_TOL
+
+
+def test_memory_report_on_the_card_returns_both_programs(card):
+    from faster_whisper_tpu_torch.transcribe import WhisperModel
+
+    cfg, cpu, tok = chip_smoke.small_model_parts()
+    for compute_type in ("bfloat16", "int8"):
+        model = WhisperModel.from_parts(cpu, cfg, tok, compute_type=compute_type, device="cuda")
+        rep = model.model.memory_report(batch_size=2, beam_size=2, max_new_tokens=8)
+        assert list(rep) == ["weights_bytes", "encode", "decode"]
+        for name in ("encode", "decode"):
+            r = rep[name]
+            assert list(r) == ["argument_bytes", "output_bytes", "temp_bytes", "code_bytes", "peak_bytes"]
+            assert r["peak_bytes"] == r["argument_bytes"] + r["temp_bytes"]
+            assert r["argument_bytes"] > rep["weights_bytes"] > 0 and r["temp_bytes"] >= r["output_bytes"] > 0
+            assert r["code_bytes"] > 0
+
+
+def test_mock_gate_on_the_card(card):
+    from faster_whisper_tpu_torch import validate
+
+    assert validate.main(["--mock"]) == 0

@@ -7,9 +7,6 @@ default value, in order: what a caller relies on.  Annotations are not
 compared; they name each package's own classes.  The allowed differences,
 each a deliberate one, are listed in ``ALLOWED``:
 
-- item 14 (speculative next-window encode) is not ported: the JAX
-  package's ``generate_segments(encoder_output=)`` and
-  ``generate_with_fallback(after_dispatch=)``;
 - ``get_speech_timestamps`` takes ``device=``, where the JAX package takes
   ``audio_device=`` and ``probs_device=``;
 - ``WhisperModel.from_parts`` takes ``device=`` (default the card) beside
@@ -18,8 +15,12 @@ each a deliberate one, are listed in ``ALLOWED``:
 
 The serving surface is held the same way: ``ContinuousBatcher``, the HTTP
 server's ``make_server``, ``serve`` and ``TranscriptionService``,
-``warm_parallel``, and the command lines of the CLI and the server (each
-option's flags, destination, default, type, choices, count and action).
+``warm_parallel``, and the command lines of the CLI, the server, the
+acceptance gate (``validate``) and the offline warm (``precompile``), each
+option's flags, destination, default, type, choices, count and action.
+One default differs on purpose (``COMMAND_LINE_ALLOWED``): the gate's
+``--data-dir``, which in the JAX package names a directory outside the
+repository and in the port is the repository's own ``docker/``.
 
 The dataclasses ``Word``, ``Segment``, ``TranscriptionOptions``,
 ``TranscriptionInfo`` and ``VadOptions`` must have the same fields, in
@@ -42,6 +43,7 @@ import faster_whisper_tpu.precompile as jax_precompile
 import faster_whisper_tpu.scheduler as jax_scheduler
 import faster_whisper_tpu.server as jax_server
 import faster_whisper_tpu.transcribe as jax_transcribe
+import faster_whisper_tpu.validate as jax_validate
 import faster_whisper_tpu.vad as jax_vad
 import faster_whisper_tpu_torch.__main__ as port_cli
 import faster_whisper_tpu_torch.audio as port_audio
@@ -49,6 +51,7 @@ import faster_whisper_tpu_torch.precompile as port_precompile
 import faster_whisper_tpu_torch.scheduler as port_scheduler
 import faster_whisper_tpu_torch.server as port_server
 import faster_whisper_tpu_torch.transcribe as port_transcribe
+import faster_whisper_tpu_torch.validate as port_validate
 import faster_whisper_tpu_torch.vad as port_vad
 
 FUNCTIONS = {
@@ -102,12 +105,17 @@ FUNCTIONS = {
 COMMAND_LINES = {
     "cli": (jax_cli, port_cli),
     "server": (jax_server, port_server),
+    "validate": (jax_validate, port_validate),
+    "precompile": (jax_precompile, port_precompile),
+}
+
+# name -> {option dest: the port's default}, where that default differs
+COMMAND_LINE_ALLOWED = {
+    "validate": {"data_dir": port_validate.DEFAULT_DATA_DIR},
 }
 
 # name -> (parameters only the JAX package has, parameters only the port has)
 ALLOWED = {
-    "WhisperModel.generate_segments": ({"encoder_output"}, set()),
-    "WhisperModel.generate_with_fallback": ({"after_dispatch"}, set()),
     "get_speech_timestamps": ({"audio_device", "probs_device"}, {"device"}),
     "WhisperModel.from_parts": (set(), {"device"}),
 }
@@ -203,4 +211,9 @@ def test_command_line_matches_jax(name, monkeypatch):
     ref, ours = COMMAND_LINES[name]
     want = command_line(ref, monkeypatch)
     assert len(want) > 5
+    defaults = COMMAND_LINE_ALLOWED.get(name, {})
+    want = [
+        (flags, dest, defaults.get(dest, default), *rest)
+        for flags, dest, default, *rest in want
+    ]
     assert command_line(ours, monkeypatch) == want

@@ -196,3 +196,87 @@ def test_get_speech_timestamps_runs_the_native_state_machine(speech, monkeypatch
     for opts in (pvad.VadOptions(), pvad.VadOptions(max_speech_duration_s=2.0, min_silence_duration_ms=160)):
         assert pvad.get_speech_timestamps(speech, opts, device="cpu")
     assert len(calls) == 2 and all(calls)
+
+
+# ---------------------------------------------------------------------------
+# The pipelined sliced upload (upload_with_vad, FWT_PIPELINED_VAD=1): the
+# counterparts of the JAX package's tests/test_vad.py upload_with_vad tests,
+# at its slice of 2048 windows (65.5 s)
+# ---------------------------------------------------------------------------
+
+
+def _tiled(base, n):
+    return np.tile(base, -(-n // len(base)))[:n]
+
+
+def test_upload_with_vad_matches_whole_buffer_forward(speech):
+    """The sliced forward (the LSTM state and the 64-sample context carried
+    across slices) is bit for bit the whole-buffer forward, whose length
+    ends inside a slice; the device PCM equals ``upload_audio``'s; the
+    probabilities agree with the JAX package's pipelined forward."""
+    from faster_whisper_tpu_torch.models.silero import VAD_SLICE_SAMPLES
+    from faster_whisper_tpu_torch.ops.mel import upload_audio
+
+    audio = _tiled(speech, int(2.3 * VAD_SLICE_SAMPLES))
+    expected = len(audio) // 512 + 1
+    ref = pvad.get_vad_model("cpu")(np.pad(audio, (0, expected * 512 - len(audio)))).numpy()
+
+    audio_dev, probs = pvad.upload_with_vad(audio, device="cpu")
+    assert isinstance(probs, np.ndarray) and probs.shape[0] >= expected
+    np.testing.assert_array_equal(probs[:expected], ref)
+    assert torch.equal(audio_dev, upload_audio(audio, "cpu"))
+
+    _, jax_probs = jvad.upload_with_vad(audio, return_audio=False)
+    np.testing.assert_allclose(probs[:expected], np.asarray(jax_probs)[:expected], atol=PROB_TOL, rtol=0)
+
+
+def test_upload_with_vad_exact_bucket_multiple(speech):
+    """A length of whole slices: the reference pads one more window past
+    the end, which a zero slice made on the device supplies; the PCM copy
+    keeps the audio's length."""
+    from faster_whisper_tpu_torch.models.silero import VAD_SLICE_SAMPLES
+
+    audio = _tiled(speech, 2 * VAD_SLICE_SAMPLES)
+    expected = len(audio) // 512 + 1
+    ref = pvad.get_vad_model("cpu")(np.pad(audio, (0, 512))).numpy()
+
+    audio_dev, probs = pvad.upload_with_vad(audio, device="cpu")
+    assert probs.shape[0] >= expected
+    assert audio_dev.shape[0] == len(audio)
+    np.testing.assert_array_equal(probs[:expected], ref)
+    assert pvad.upload_with_vad(audio, return_audio=False, device="cpu")[0] is None
+
+
+def test_pipelined_vad_same_speech_timestamps(speech, monkeypatch):
+    """``get_speech_timestamps`` decides the same with the pipelined sliced
+    path off and on, and so does ``BatchedInferencePipeline`` (its speech
+    chunks, and the segments decoded from them)."""
+    from faster_whisper_tpu_torch.testing import build_test_model
+    from faster_whisper_tpu_torch.transcribe import BatchedInferencePipeline
+
+    audio = _tiled(speech, int(1.5 * SR * 30))
+    opts = pvad.VadOptions(max_speech_duration_s=30, min_silence_duration_ms=160)
+    uploads = []
+    upload = pvad.upload_with_vad
+
+    def counted(*args, **kwargs):
+        uploads.append(kwargs.get("return_audio", True))
+        return upload(*args, **kwargs)
+
+    monkeypatch.setattr(pvad, "upload_with_vad", counted)
+    monkeypatch.setattr("faster_whisper_tpu_torch.transcribe.upload_with_vad", counted)
+    pipeline = BatchedInferencePipeline(build_test_model(device="cpu"))
+
+    def run():
+        chunks = pvad.get_speech_timestamps(audio, opts, device="cpu")
+        segments, info = pipeline.transcribe(audio, language="en", max_new_tokens=4, batch_size=4)
+        return chunks, [(s.start, s.end, s.tokens) for s in segments], info.duration_after_vad
+
+    monkeypatch.setenv("FWT_PIPELINED_VAD", "0")
+    ref = run()
+    assert uploads == []
+    monkeypatch.setenv("FWT_PIPELINED_VAD", "1")
+    got = run()
+    assert uploads == [False, True]  # get_speech_timestamps, then the pipeline
+    assert got == ref
+    assert len(ref[0]) > 1 and ref[2] > 0
