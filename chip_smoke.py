@@ -150,7 +150,20 @@ Phases, each printing its own line with its seconds:
     batched together (the mesh's output is its shards' batch results),
     counted against h's (batches of 8, which the card's bf16 decode need
     not match), with the wall seconds beside h's; and
-    ``device_index=[0, 1]`` on a one-card machine, which is one device.
+    ``device_index=[0, 1]`` on a one-card machine, which is one device;
+14. tensor parallel: K1-K4's holds of phase 3 at a shard's heads (H=10
+    for N=2, H=5 for N=4) and K1-K4 timed at H=10 beside H=20; at
+    large-v3-turbo width ``tensor_parallel=2`` on ``device_index=[0, 0]``
+    against one device: an encode's states and a decode step's logits
+    (bf16, within TP_BF16_TOL) and a row-parallel int8 product
+    (bit-equal); the small float32 model at N=2 on the card against N=2
+    on the CPU (equal tokens and times); requests h (bf16) and i (int8)
+    through the pipeline and a (20 s) under ``tensor_parallel=2``: per
+    decode step 4 launches per shard of K1 (K2) and K4, per encode 32 per
+    shard of K3, the all-reduces' share of a step, and the segments that
+    differ from one device's (printed: the card's decode is not
+    batch-invariant); with two cards h on ``[0, 1]`` (NCCL) must equal
+    ``[0, 0]``'s, and with one a line says that NCCL was not run.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as the last line
@@ -328,8 +341,8 @@ def beam_positions(B, quant, dtype, K=5, H=20, D=64, ctx=448):
     return [(B, pos) for pos in sorted({0, 1, chunk - 1, chunk, chunk + 1, ctx - 1})]
 
 
-def check_beam_attention(batches=(1, 8), dtype=torch.bfloat16):
-    """K1 in ``dtype`` against its plain version at ``beam_positions``: the
+def check_beam_attention(batches=(1, 8), dtype=torch.bfloat16, H=20):
+    """K1 in ``dtype`` with ``H`` heads against its plain version at ``beam_positions``: the
     attention output within the dtype's tolerance, and the caches: the
     target column of every slot holds the new K/V, every other element is
     untouched.  Returns the max abs error."""
@@ -338,16 +351,16 @@ def check_beam_attention(batches=(1, 8), dtype=torch.bfloat16):
         beam_attend_append_ref,
     )
 
-    shapes = [bp for B in batches for bp in beam_positions(B, False, dtype)]
+    shapes = [bp for B in batches for bp in beam_positions(B, False, dtype, H=H)]
     worst = 0.0
     for (B, pos), divergent in ((shape, d) for shape in shapes for d in (False, True)):
-        x = k1_inputs(B, pos, seed=B * 1000 + pos, divergent=divergent, dtype=dtype)
+        x = k1_inputs(B, pos, H=H, seed=B * 1000 + pos, divergent=divergent, dtype=dtype)
         ref, rk, rv = _k1_call(beam_attend_append_ref, x)
         out, ok, ov = _k1_call(beam_attend_append, x)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         tol = tolerance(dtype) * ref.float().abs().max().item()
-        print(f"K1 {dtype_name(dtype)} B={B} K=5 ctx=448 pos={pos} "
+        print(f"K1 {dtype_name(dtype)} B={B} H={H} K=5 ctx=448 pos={pos} "
               f"{'divergent' if divergent else 'shared'} ancestry: "
               f"max|err| {err:.3e} (tolerance {tol:.3e})")
         if not err <= tol:
@@ -384,8 +397,8 @@ def k2_inputs(B, pos, seed=0, divergent=False, **kw):
     return x
 
 
-def check_beam_attention_int8(batches=(1, 8), dtype=torch.bfloat16):
-    """K2 with ``dtype`` activations against its plain version at
+def check_beam_attention_int8(batches=(1, 8), dtype=torch.bfloat16, H=20):
+    """K2 with ``dtype`` activations and ``H`` heads against its plain version at
     ``beam_positions``: the attention output within the dtype's tolerance;
     the codes written at the target column equal to the plain version's
     (up to one unit where a value lies on a rounding boundary, counted),
@@ -396,10 +409,10 @@ def check_beam_attention_int8(batches=(1, 8), dtype=torch.bfloat16):
         beam_attend_append_ref,
     )
 
-    shapes = [bp for B in batches for bp in beam_positions(B, True, dtype)]
+    shapes = [bp for B in batches for bp in beam_positions(B, True, dtype, H=H)]
     worst, n_diff = 0.0, 0
     for (B, pos), divergent in ((shape, d) for shape in shapes for d in (False, True)):
-        x = k2_inputs(B, pos, seed=B * 1000 + pos + 7, divergent=divergent, dtype=dtype)
+        x = k2_inputs(B, pos, H=H, seed=B * 1000 + pos + 7, divergent=divergent, dtype=dtype)
         ref, rk, rv = _k1_call(beam_attend_append_ref, x)
         out, ok, ov = _k1_call(beam_attend_append, x)
         torch.cuda.synchronize()
@@ -409,7 +422,7 @@ def check_beam_attention_int8(batches=(1, 8), dtype=torch.bfloat16):
             (a.q.int() - b.q.int()).abs().max().item() for a, b in ((ok, rk), (ov, rv))
         )
         n = sum(int((a.q != b.q).sum()) for a, b in ((ok, rk), (ov, rv)))
-        print(f"K2 {dtype_name(dtype)} B={B} K=5 ctx=448 pos={pos} "
+        print(f"K2 {dtype_name(dtype)} B={B} H={H} K=5 ctx=448 pos={pos} "
               f"{'divergent' if divergent else 'shared'} ancestry: "
               f"max|err| {err:.3e} (tolerance {tol:.3e}), {n} codes differ (max {code_diff})")
         if not err <= tol:
@@ -506,8 +519,8 @@ K4_FORMS = {  # form -> (int8 cache, activation dtype, qmax of the codes)
 }
 
 
-def check_cross_attention(batches=(1, 8), forms=tuple(K4_FORMS), Ts=(1500,), Ks=(5,), L=4):
-    """K4, each form, against its plain version; the second of two calls
+def check_cross_attention(batches=(1, 8), forms=tuple(K4_FORMS), Ts=(1500,), Ks=(5,), L=4, H=20):
+    """K4, each form, with ``H`` heads against its plain version; the second of two calls
     back to back must equal the first (the ticket counters were reset), and
     two layers captured in one CUDA graph and replayed twice must agree
     with their plain versions.  Returns {form: max abs error}."""
@@ -520,7 +533,7 @@ def check_cross_attention(batches=(1, 8), forms=tuple(K4_FORMS), Ts=(1500,), Ks=
             for T in Ts:
                 for K in Ks:
                     seed = B + 10 * quant + T + K + 1000 * (qmax != 127)
-                    layer, q, ck, cv = k4_inputs(B, quant, K=K, L=L, T=T, seed=seed, dtype=dtype,
+                    layer, q, ck, cv = k4_inputs(B, quant, K=K, H=H, L=L, T=T, seed=seed, dtype=dtype,
                                                  qmax=qmax)
                     ref = cross_attend_ref(layer, q, ck, cv)
                     out = cross_attend(layer, q, ck, cv)
@@ -528,14 +541,14 @@ def check_cross_attention(batches=(1, 8), forms=tuple(K4_FORMS), Ts=(1500,), Ks=
                     torch.cuda.synchronize()
                     err = (out.float() - ref.float()).abs().max().item()
                     tol = tolerance(dtype) * ref.float().abs().max().item()
-                    print(f"K4 {form} B={B} K={K} T={T}: max|err| {err:.3e} (tolerance {tol:.3e})")
+                    print(f"K4 {form} B={B} H={H} K={K} T={T}: max|err| {err:.3e} (tolerance {tol:.3e})")
                     if not err <= tol:
                         raise AssertionError(f"K4 ({form}) disagrees with its plain version at B={B}, K={K}, T={T}")
                     if not torch.equal(out, again):
                         raise AssertionError(f"K4 ({form}): a second call differs from the first at B={B}, K={K}, T={T}")
                     worst[form] = max(worst.get(form, 0.0), err)
         # Two layers in one graph, replayed twice.
-        layer, q, ck, cv = k4_inputs(batches[0], quant, L=L, T=Ts[0], seed=99, dtype=dtype, qmax=qmax)
+        layer, q, ck, cv = k4_inputs(batches[0], quant, H=H, L=L, T=Ts[0], seed=99, dtype=dtype, qmax=qmax)
         refs = [cross_attend_ref(i, q, ck, cv) for i in (layer, layer - 1)]
         for i in (layer, layer - 1):  # warm-up outside the capture
             cross_attend(i, q, ck, cv)
@@ -571,21 +584,21 @@ def k3_inputs(B, S=1500, H=20, D=64, seed=0, dtype=torch.bfloat16):
 K3_SHAPES = dict(batches=(1, 8), Ss=(1, 63, 128, 1500, 1501))
 
 
-def check_flash_attention(batches=(1, 8), Ss=(1500,), dtype=torch.bfloat16):
-    """K3 in ``dtype`` against its plain version (``mha``); returns the max
-    abs error."""
+def check_flash_attention(batches=(1, 8), Ss=(1500,), dtype=torch.bfloat16, H=20):
+    """K3 in ``dtype`` with ``H`` heads against its plain version (``mha``);
+    returns the max abs error."""
     from faster_whisper_tpu_torch.ops.attention import mha, mha_flash
 
     worst = 0.0
     for B in batches:
         for S in Ss:
-            q, k, v = k3_inputs(B, S, seed=B + S, dtype=dtype)
+            q, k, v = k3_inputs(B, S, H=H, seed=B + S, dtype=dtype)
             ref = mha(q, k, v)
             out = mha_flash(q, k, v)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             tol = tolerance(dtype) * ref.float().abs().max().item()
-            print(f"K3 {dtype_name(dtype)} ({B},{S},20,64): max|err| {err:.3e} (tolerance {tol:.3e})")
+            print(f"K3 {dtype_name(dtype)} ({B},{S},{H},64): max|err| {err:.3e} (tolerance {tol:.3e})")
             if not err <= tol:
                 raise AssertionError(f"K3 ({dtype_name(dtype)}) disagrees with its plain version at B={B}, S={S}")
             worst = max(worst, err)
@@ -689,7 +702,7 @@ def time_beam_attention(B=1, pos=447, K=5, H=20, D=64, quant=False, dtype=torch.
         beam_attend_append_ref,
     )
 
-    x = (k2_inputs if quant else k1_inputs)(B, pos, divergent=True, dtype=dtype)
+    x = (k2_inputs if quant else k1_inputs)(B, pos, H=H, divergent=True, dtype=dtype)
     caches = (x["self_k"], x["self_v"])  # rewritten in place with the same column
     t = _timed(lambda: _k1_call(beam_attend_append, x, caches),
                lambda: _k1_call(beam_attend_append_ref, x, caches))
@@ -826,19 +839,21 @@ def run_requests(model, requests, n_vocab):
     return read_counts()
 
 
-def check_counts(counts, per_step, per_encode, cfg):
+def check_counts(counts, per_step, per_encode, cfg, shards=1):
     """Every kernel form in ``per_step`` launched n_text_layer times per
-    decode step, ``per_encode`` n_audio_layer times per encode, every other
-    form never."""
+    decode step, ``per_encode`` n_audio_layer times per encode, on each of
+    ``shards`` shards of a model-axis group, every other form never."""
     if counts["steps"] == 0 or counts["encodes"] == 0:
         raise AssertionError(f"the run decoded or encoded nothing: {counts}")
     for name, n in counts.items():
         if name in ("steps", "encodes"):
             continue
         if name in per_step:
-            want, what = cfg.n_text_layer * counts["steps"], f"{cfg.n_text_layer} x {counts['steps']} decode steps"
+            want = shards * cfg.n_text_layer * counts["steps"]
+            what = f"{shards} x {cfg.n_text_layer} x {counts['steps']} decode steps"
         elif name == per_encode:
-            want, what = cfg.n_audio_layer * counts["encodes"], f"{cfg.n_audio_layer} x {counts['encodes']} encodes"
+            want = shards * cfg.n_audio_layer * counts["encodes"]
+            what = f"{shards} x {cfg.n_audio_layer} x {counts['encodes']} encodes"
         else:
             want, what = 0, "0: another compute type's form"
         if n != want:
@@ -930,13 +945,14 @@ def run_main_path(speech):
     return runs, later
 
 
-def run_batched(model, name, audio, cfg, **kwargs):
+def run_batched(model, name, audio, cfg, stats=None, **kwargs):
     """One ``BatchedInferencePipeline.transcribe`` with the VAD on, beam 5,
     batch 8 (and ``kwargs``), checked; returns the launch counts of the
     run, set to 0 just before it, its segments and its seconds.  The
     chunks of each batch, its seconds (encode and decode) and the rows it
     was encoded with (its pow2 bucket) are read off the pipeline's
-    dispatch and the model's encode."""
+    dispatch and the model's encode; ``stats``, a dict, gets the batches'
+    seconds."""
     from faster_whisper_tpu_torch.transcribe import BatchedInferencePipeline
 
     pipeline = BatchedInferencePipeline(model)
@@ -970,6 +986,8 @@ def run_batched(model, name, audio, cfg, **kwargs):
         # cycles that keep the model's weights alive into the next request
         del model.encode, pipeline._dispatch_segment_batch
     duration = len(audio) / 16000
+    if stats is not None:
+        stats["batch_seconds"] = list(batch_seconds)
     check_segments(segments, info, duration, cfg.n_vocab)
     # on a mesh of n replicas a batch of rows that n divides encodes once per replica
     n = len(model.model.replicas)
@@ -1215,7 +1233,7 @@ def check_chunked_mel(audio, speech, card):
         raise AssertionError("chunked log-mel on the card disagrees with the host FeatureExtractor")
 
 
-def check_small_pipeline_against_cpu(jfk, word_timestamps=False):
+def check_small_pipeline_against_cpu(jfk, word_timestamps=False, tensor_parallel=1):
     """A small float32 model through ``BatchedInferencePipeline`` on the
     card and on the CPU: on ``clip_timestamps`` (three clips at batch 2: a
     full batch and a tail padded with a dummy row), and with the defaults
@@ -1224,12 +1242,17 @@ def check_small_pipeline_against_cpu(jfk, word_timestamps=False):
     Equal tokens and times.  With ``word_timestamps`` (phase 10) the
     specials of the synthetic vocabulary are suppressed, so that the
     chunks decode text, and the words must be equal too
-    (``check_words_equal``)."""
+    (``check_words_equal``).  With ``tensor_parallel=N`` both models are
+    one group of N shards: on ``device_index=[0] * N`` on the card, and on N
+    host devices."""
     from faster_whisper_tpu_torch.transcribe import BatchedInferencePipeline, WhisperModel
 
     cfg, cpu, tok = small_model_parts()
+    mesh = lambda dev: (dict(device_index=[0] * tensor_parallel if dev == "cuda"  # noqa: E731
+                             else list(range(tensor_parallel)), tensor_parallel=tensor_parallel)
+                        if tensor_parallel > 1 else {})
     models = {
-        dev: WhisperModel.from_parts(cpu, cfg, tok, compute_type="float32", device=dev)
+        dev: WhisperModel.from_parts(cpu, cfg, tok, compute_type="float32", device=dev, **mesh(dev))
         for dev in ("cuda", "cpu")
     }
     clips = [{"start": 0.0, "end": 5.0}, {"start": 5.5, "end": 9.0}, {"start": 9.0, "end": 12.0}]
@@ -1248,7 +1271,8 @@ def check_small_pipeline_against_cpu(jfk, word_timestamps=False):
             out[dev] = [(s.start, s.end, s.tokens) for s in segs[dev]]
         n_tokens = sum(len(t) for _, _, t in out["cpu"])
         print(f"small float32 model through BatchedInferencePipeline, {label}"
-              f"{', word timestamps' if word_timestamps else ''}: "
+              f"{', word timestamps' if word_timestamps else ''}"
+              f"{f', tensor_parallel={tensor_parallel}' if tensor_parallel > 1 else ''}: "
               f"{len(out['cuda'])} segments on the card, {len(out['cpu'])} on the CPU, "
               f"{n_tokens} tokens; equal: {out['cuda'] == out['cpu']}")
         if out["cuda"] != out["cpu"]:
@@ -2171,9 +2195,9 @@ class SpeculationProbe:
         base = self._base = transcribe._SideEncode
 
         class Probe(base):
-            def __init__(self, encode, window):
+            def __init__(self, encode, window, devices=None):
                 before = read_counts()
-                super().__init__(encode, window)
+                super().__init__(encode, window, devices)
                 after = read_counts()
                 self.entry = dict(window=window, output=self.output, hit=False,
                                   delta={k: after[k] - before[k]
@@ -2882,6 +2906,232 @@ def run_mesh(later, speech, card):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: tensor parallel
+# ---------------------------------------------------------------------------
+
+# A large-v3-turbo layer under tensor_parallel=2 against one device, both
+# bf16 on the card: the row-parallel products' partials are rounded to
+# bf16 and summed (one more rounding than one product), through 32 encoder
+# layers or a prefill and a decode step.  Of the largest value, as phase 8
+# holds the card's bf16 encoder against the CPU.
+TP_BF16_TOL = 3 * BF16_REL_TOL
+TP_HEADS = (10, 5)  # large-v3-turbo's 20 heads over 2 and over 4 shards
+
+
+def check_tp_kernels(card):
+    """Phase 14a: phase 3's holds of K1, K2, K3 and K4 against their plain
+    versions, at the heads of a shard: H=10 (N=2) and H=5 (N=4); K1, K2,
+    K3 and K4 timed at B=8 and H=10 beside phase 3's H=20.  Returns
+    {label: max abs error} in phase 3's labels."""
+    f32 = torch.float32
+    errs = {}
+
+    def keep(label, err):
+        errs[label] = max(errs.get(label, 0.0), err)
+
+    for H in TP_HEADS:
+        keep("K1", check_beam_attention(H=H))
+        keep("K1 f32", check_beam_attention(dtype=f32, H=H))
+        keep("K2", check_beam_attention_int8(H=H)[0])
+        keep("K2 f32", check_beam_attention_int8(dtype=f32, H=H)[0])
+        keep("K3", check_flash_attention(**K3_SHAPES, H=H))
+        keep("K3 f32", check_flash_attention(**K3_SHAPES, dtype=f32, H=H))
+        for form, err in check_cross_attention(H=H).items():
+            keep(f"K4 {form}", err)
+    for H in (20, 10):
+        print_times(f"K1 H={H}", time_beam_attention(B=8, H=H), card)
+        print_times(f"K2 H={H}", time_beam_attention(B=8, H=H, quant=True), card)
+        print_times(f"K3 H={H}", time_flash_attention(B=8, H=H), card)
+        for quant in (False, True):
+            print_times(f"K4 H={H}", time_cross_attention(quant, B=8, H=H), card)
+    return errs
+
+
+def _one_step_logits(model, xa, tok0):
+    """One prefill of 4 start tokens and one beam decode step (K=5, a table
+    of 64) over the encoder states ``xa`` with the tokens ``tok0`` (B,):
+    the step's logits (B, K, V) on the lead."""
+    from faster_whisper_tpu_torch.generation import generate as G
+    from faster_whisper_tpu_torch.models import model as M
+
+    eng = model.model
+    params = eng.replicas[0][1]
+    b, K, P, ctx = xa.shape[0], 5, 4, 64
+    prompt = torch.full((b, P), eng.sot_id, dtype=torch.long, device="cuda")
+    lens = torch.full((b,), P, dtype=torch.long, device="cuda")
+    _, cache0 = M.decoder_prefill(params, eng.config, prompt, lens, xa, (lens - 1)[:, None], ctx=ctx)
+    sk, sv, ck, cv = G._expand_caches(cache0, K, eng.kv_int8)
+    tok = tok0[:, None].expand(b, K).contiguous()
+    pos = torch.full((b, K), P, dtype=torch.long, device="cuda")
+    anc = torch.arange(K, dtype=torch.int32, device="cuda")[None, :, None].expand(b, K, ctx).contiguous()
+    logits, _, _ = G._gen_decoder_step(params, eng.config, tok, pos, pos[:, 0].int(), sk, sv, ck, cv,
+                                       anc, plan_ctx=ctx)
+    return logits
+
+
+def check_tp_layers(later, card):
+    """Phase 14b: at large-v3-turbo width on ``device_index=[0, 0]``,
+    ``tensor_parallel=2`` against one device: one encode's states (B=2)
+    and one decode step's logits (the same encoder states and tokens) in
+    bf16 within TP_BF16_TOL of the largest value, the step launching K1
+    and K4 4 times per shard; at int8 one row-parallel ``int8_dense``
+    (mlp.w2 of layer 0, 40 rows: B=8 x 5 beams) bit-equal to one device's,
+    and the int8 encode's states compared.  Returns (one device's bf16
+    model, the tensor-parallel bf16 model)."""
+    from faster_whisper_tpu_torch.models import model as M
+    from faster_whisper_tpu_torch.ops.quant import int8_dense, int8_dense_rows
+    from faster_whisper_tpu_torch.transcribe import WhisperModel
+
+    params, cfg, tok = later["params"], later["cfg"], later["tok"]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(14)
+    mel = torch.randn((2, cfg.n_mels, 3000), generator=g, device="cuda")
+    one = WhisperModel.from_parts(params, cfg, tok)
+    tp = WhisperModel.from_parts(params, cfg, tok, device_index=[0, 0], tensor_parallel=2)
+    x1, x2 = one.model.encode(mel), tp.model.encode(mel)
+    err = (x2.float() - x1.float()).abs().max().item()
+    tol = TP_BF16_TOL * x1.float().abs().max().item()
+    print(f"tensor_parallel=2 on [0, 0], bf16 encode (2, 1500, 1280) against one device: max|err| "
+          f"{err:.3e} (tolerance {tol:.3e}), bit-equal {torch.equal(x1, x2)}")
+    if not err <= tol:
+        raise AssertionError("the tensor-parallel bf16 encode disagrees with one device's")
+    tok0 = torch.randint(0, 50257, (2,), generator=g, device="cuda")
+    l1 = _one_step_logits(one, x1, tok0)
+    reset_counts()
+    l2 = _one_step_logits(tp, x1, tok0)
+    counts = read_counts()
+    err = (l2 - l1).abs().max().item()
+    tol = TP_BF16_TOL * l1.abs().max().item()
+    same_top = bool((l1.argmax(-1) == l2.argmax(-1)).all())
+    print(f"tensor_parallel=2, bf16 prefill and one decode step's logits (2, 5, {cfg.n_vocab}) against one "
+          f"device: max|err| {err:.3e} (tolerance {tol:.3e}), argmax equal {same_top}; K1 launches "
+          f"{counts['k1']}, K4 {counts['k4_bf16']} (4 layers x 2 shards)")
+    if not err <= tol:
+        raise AssertionError("the tensor-parallel decode step's logits disagree with one device's")
+    if counts["k1"] != 2 * cfg.n_text_layer or counts["k4_bf16"] != 2 * cfg.n_text_layer:
+        raise AssertionError(f"the tensor-parallel decode step launched {counts}")
+
+    one8 = WhisperModel.from_parts(params, cfg, tok, compute_type="int8")
+    tp8 = WhisperModel.from_parts(params, cfg, tok, compute_type="int8", device_index=[0, 0],
+                                  tensor_parallel=2)
+    w = M._layer(one8.model.params["decoder"]["layers"], 0)["mlp"]
+    parts = [M._layer(t["decoder"]["layers"], 0)["mlp"] for t in tp8.model.params.trees]
+    x = torch.randn((40, 4 * cfg.n_text_state), generator=g, device="cuda").to(torch.bfloat16)
+    half = x.shape[1] // 2
+    want = int8_dense(x, w["w2"], w["b2"])
+    got = int8_dense_rows([x[:, :half], x[:, half:]], [p["w2"] for p in parts], [p["b2"] for p in parts],
+                          tp8.model.params.group)
+    equal = all(torch.equal(y, want) for y in got)
+    e1, e2 = one8.model.encode(mel), tp8.model.encode(mel)
+    print(f"tensor_parallel=2, int8 row-parallel int8_dense (40 x 5120 @ 5120 x 1280, mlp.w2 of layer 0) "
+          f"bit-equal to one device's: {equal}; int8 encode states bit-equal: {torch.equal(e1, e2)} "
+          f"(max|diff| {(e1.float() - e2.float()).abs().max().item():.3e})")
+    if not equal:
+        raise AssertionError("the tensor-parallel int8 row-parallel product differs from one device's")
+    del one8, tp8
+    torch.cuda.empty_cache()
+    return one, tp
+
+
+def _reduce_report(group, events, steps, batch_seconds, per_step):
+    """The reductions' device time from their CUDA events, and their share
+    of a decode step: ``per_step`` reductions per step at the mean time of
+    the decode's (those over (B, K, ...) rows; the encoder's run over
+    (B, 1500, ...), the prefill's over the prompt)."""
+    torch.cuda.synchronize()
+    ms = {}
+    for start, end, shape in events:
+        kind = "encode" if shape[1] == 1500 else "decode" if shape[1] <= 16 else "prefill"
+        ms.setdefault(kind, []).append(start.elapsed_time(end))
+    step_ms = sum(batch_seconds) * 1e3 / max(steps, 1)
+    dec = ms.get("decode", [0.0])
+    mean = sum(dec) / len(dec)
+    each = ", ".join(f"{k}: {len(v)} in {sum(v):.3f} ms" for k, v in ms.items())
+    return (f"all-reduces ({group.transport}) on the lead's stream: {each} of device time; a decode "
+            f"step's {per_step} at {mean * 1e3:.2f} us each: {per_step * mean:.4f} ms of {step_ms:.3f} ms "
+            f"per step ({100 * per_step * mean / step_ms:.2f}%)")
+
+
+def run_tensor_parallel(later, speech, card):
+    """Phase 14c: requests h (bf16) and i (int8) through the pipeline (VAD
+    on, batch 8, beam 5, 128 new tokens, the tiled 5 minutes) and a (20 s,
+    sequential, language detection, beam 5) under ``tensor_parallel=2`` on
+    ``device_index=[0, 0]``: well-formed segments, per decode step 4
+    launches per shard of K1 (K2) and K4, per encode 32 of K3; the
+    transport, wall seconds, ms per step, the card's peak (both shards),
+    the all-reduces' share of a step, and the segments that differ from
+    one device's request (printed, not held: the card's decode is not
+    batch-invariant).  On two or more cards h on ``[0, 1]`` (NCCL) must
+    give ``[0, 0]``'s segments.  Returns {request: launch counts}."""
+    from faster_whisper_tpu_torch.transcribe import WhisperModel
+
+    params, cfg, tok = later["params"], later["cfg"], later["tok"]
+    one, tp = check_tp_layers(later, card)
+    runs = {}
+
+    def rows(segs):
+        return [(s.seek, s.start, s.end, s.tokens) for s in segs]
+
+    def differ(a, b):
+        return sum(x != y for x, y in zip(rows(a), rows(b))) + abs(len(a) - len(b))
+
+    def batched(model, label, ref, forms, per_step):
+        group = model.model.params.group
+        group.events, stats = [], {}
+        counts, segments, seconds = run_batched(model, label, speech, cfg, stats=stats)
+        events, group.events = group.events, None
+        check_counts(counts, per_step=forms[:2], per_encode=forms[2], cfg=cfg, shards=2)
+        print(f"request {label}: transport {group.transport}; {seconds:.3f} s wall; "
+              f"{_reduce_report(group, events, counts['steps'], stats['batch_seconds'], per_step)}; "
+              f"{differ(segments, ref)} of {len(ref)} segments differ from one device's on {card}")
+        return counts, segments
+
+    runs["tp h"], h_segments = batched(tp, "h: bf16, tensor_parallel=2 on [0, 0]", later["h_segments"],
+                                       ("k1", "k4_bf16", "k3"), 3 * cfg.n_text_layer)
+    clip = synth_audio(20.0, seed=1)
+    kwargs = dict(language=None, beam_size=5)
+    seqs = {}
+    for name, model in (("one device", one), ("tensor_parallel=2 on [0, 0]", tp)):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        segments, info = model.transcribe(clip, **kwargs)
+        seqs[name] = list(segments)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        check_segments(seqs[name], info, 20.0, cfg.n_vocab)
+        print(f"request a: 20 s, language detection, beam 5, temperature ladder, {name}: "
+              f"{len(seqs[name])} segments, {seconds:.3f} s, {counts['steps']} steps "
+              f"({seconds * 1e3 / max(counts['steps'], 1):.2f} ms per step, wall), peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+    check_counts(counts, per_step=("k1", "k4_bf16"), per_encode="k3", cfg=cfg, shards=2)
+    runs["tp a"] = counts
+    print(f"request a under tensor_parallel=2: {differ(seqs['tensor_parallel=2 on [0, 0]'], seqs['one device'])}"
+          f" of {len(seqs['one device'])} segments differ from one device's")
+    del one, tp
+    torch.cuda.empty_cache()
+
+    tp8 = WhisperModel.from_parts(params, cfg, tok, compute_type="int8", device_index=[0, 0],
+                                  tensor_parallel=2)
+    runs["tp i"], _ = batched(tp8, "i: int8, tensor_parallel=2 on [0, 0]", later["i_segments"],
+                              ("k2", "k4_int8", "k3"), 6 * cfg.n_text_layer)
+    del tp8
+    torch.cuda.empty_cache()
+
+    if torch.cuda.device_count() < 2:
+        print("NCCL transport not run: the machine has one card (tensor_parallel=2 on [0, 1] needs two)")
+        return runs
+    nccl = WhisperModel.from_parts(params, cfg, tok, device_index=[0, 1], tensor_parallel=2)
+    counts, segments = batched(nccl, "h: bf16, tensor_parallel=2 on [0, 1]", h_segments,
+                               ("k1", "k4_bf16", "k3"), 3 * cfg.n_text_layer)
+    runs["tp h nccl"] = counts
+    if rows(segments) != rows(h_segments):
+        raise AssertionError("request h on [0, 1] (NCCL) differs from [0, 0] (the local sum)")
+    return runs
+
+
 def _fmt(x):
     return "n/a" if x is None else f"{x:.4f} ms"
 
@@ -3007,8 +3257,14 @@ def main():
     phase("ctx ladder", t0)
     t0 = time.perf_counter()
     late["h mesh"] = run_mesh(later, speech, card)
-    del later
     phase("mesh", t0)
+    t0 = time.perf_counter()
+    for label, err in check_tp_kernels(card).items():
+        errs[label] = max(errs[label], err)
+    check_small_pipeline_against_cpu(jfk, tensor_parallel=2)
+    late.update(run_tensor_parallel(later, speech, card))
+    del later
+    phase("tensor parallel", t0)
 
     def late_sum(key):
         return sum(c[key] for c in late.values())

@@ -63,11 +63,14 @@ from faster_whisper_tpu_torch.generation.processors import (
 from faster_whisper_tpu_torch.models.config import WhisperConfig
 from faster_whisper_tpu_torch.models.model import (
     _dense,
-    _layer,
+    _layers,
     _logits,
     _mlp,
+    _norm,
+    _out,
+    _residual,
     decoder_prefill,
-    layer_norm,
+    shards,
 )
 from faster_whisper_tpu_torch.ops import _build
 from faster_whisper_tpu_torch.ops.beam_attention import beam_attend_append
@@ -144,51 +147,65 @@ def _gen_decoder_step(
     self_k, self_v).  Per layer, self-attention is one
     ``beam_attend_append`` (K1, or K2 on the int8 cache, on the card, with
     the column chunks of a table of ``plan_ctx`` positions) and
-    cross-attention one ``cross_attend`` (K4).  Counts its calls in
+    cross-attention one ``cross_attend`` (K4) per shard.  Over a
+    model-axis group (``ShardedParams``) the caches are lists, one per
+    shard at H/N heads, and the lead's token, positions and ancestry map
+    are copied to the other shards' devices first.  Counts its calls in
     ``_gen_decoder_step.calls``."""
     _build.count(_gen_decoder_step, "calls")
-    dec = params["decoder"]
+    trees, group = shards(params)
+    caches = [c if isinstance(c, list) else [c] for c in (self_k, self_v, cross_k, cross_v)]
+    sk, sv, ck, cv = caches
     b, k = token.shape
-    n_head = config.n_text_head
-    dh = config.n_text_state // n_head
-    dtype = dec["token_embed"].dtype
+    n_head = config.n_text_head // group.size
+    dh = config.n_text_state // config.n_text_head
+    dtype = trees[0]["decoder"]["token_embed"].dtype
+    toks, poss, rows, ancs = (group.broadcast(t) for t in (token, pos, pos_row, anc))
 
-    x = (dec["token_embed"][token] + dec["pos_embed"][pos]).to(dtype)  # (B, K, d)
+    def embed(t, tok, p):
+        return (t["decoder"]["token_embed"][tok] + t["decoder"]["pos_embed"][p]).to(dtype)  # (B, K, d)
+
+    def heads(y):  # (B, K, d/N) -> (B, H/N, K, D)
+        return y.reshape(b, k, n_head, dh).transpose(1, 2).contiguous()
+
+    def merge(a):  # (B, H/N, K, D) -> (B, K, d/N)
+        return a.transpose(1, 2).reshape(b, k, -1)
+
+    xs = group.replicated(embed, trees, toks, poss)
     for i in range(config.n_text_layer):
-        p = _layer(dec["layers"], i)
+        ps = _layers(trees, "decoder", i)
+        hs = _norm(group, xs, ps, "ln1_g", "ln1_b")
+        attn = []
+        for j, (h, p) in enumerate(zip(hs, ps)):
+            sa = p["self_attn"]
+            a, sk[j], sv[j] = beam_attend_append(
+                i,
+                rows[j],
+                heads(_dense(h, sa["wq"], sa["bq"])),
+                heads(_dense(h, sa["wk"])),
+                heads(_dense(h, sa["wv"], sa["bv"])),
+                sk[j],
+                sv[j],
+                ancs[j],
+                pos_bk=poss[j],
+                plan_ctx=plan_ctx,
+            )
+            attn.append(merge(a))
+        xs = _residual(group, xs, _out(group, attn, ps, "self_attn"))
 
-        h = layer_norm(x, p["ln1_g"], p["ln1_b"])
-        sa = p["self_attn"]
+        hs = _norm(group, xs, ps, "ln2_g", "ln2_b")
+        attn = []
+        for j, (h, p) in enumerate(zip(hs, ps)):
+            cp = p["cross_attn"]
+            attn.append(merge(cross_attend(i, heads(_dense(h, cp["wq"], cp["bq"])), ck[j], cv[j])))
+        xs = _residual(group, xs, _out(group, attn, ps, "cross_attn"))
 
-        def heads(y):  # (B, K, d) -> (B, H, K, D)
-            return y.reshape(b, k, n_head, dh).transpose(1, 2).contiguous()
+        hs = _norm(group, xs, ps, "ln3_g", "ln3_b")
+        xs = _residual(group, xs, _mlp(group, hs, ps))
 
-        attn_h, self_k, self_v = beam_attend_append(
-            i,
-            pos_row,
-            heads(_dense(h, sa["wq"], sa["bq"])),
-            heads(_dense(h, sa["wk"])),
-            heads(_dense(h, sa["wv"], sa["bv"])),
-            self_k,
-            self_v,
-            anc,
-            pos_bk=pos,
-            plan_ctx=plan_ctx,
-        )
-        attn = attn_h.transpose(1, 2).reshape(b, k, -1)
-        x = x + _dense(attn, sa["wo"], sa["bo"])
-
-        h = layer_norm(x, p["ln2_g"], p["ln2_b"])
-        cp = p["cross_attn"]
-        attn_h = cross_attend(i, heads(_dense(h, cp["wq"], cp["bq"])), cross_k, cross_v)
-        attn = attn_h.transpose(1, 2).reshape(b, k, -1)
-        x = x + _dense(attn, cp["wo"], cp["bo"])
-
-        h = layer_norm(x, p["ln3_g"], p["ln3_b"])
-        x = x + _mlp(p["mlp"], h)
-
-    x = layer_norm(x, dec["ln_g"], dec["ln_b"])
-    return _logits(params, x), self_k, self_v
+    if not isinstance(self_k, list):
+        sk, sv = sk[0], sv[0]
+    return _logits(params, xs), sk, sv
 
 
 _gen_decoder_step.calls = 0
@@ -224,13 +241,17 @@ def _tokens_view(hist_tok: torch.Tensor, anc: torch.Tensor) -> torch.Tensor:
 def _expand_caches(cache0, K: int, kv_int8: bool, cross_qmax: int = 127):
     """The prefill cache on the (B, K) beam grid: self K/V (L, B, H, ctx,
     D) -> (L, B, H, K, ctx, D), contiguous for K1/K2; the shared cross K/V
-    (L, B, H, T, D) stay in the model dtype.
+    (L, B, H, T, D) stay in the model dtype.  A group's list of caches
+    (one per shard) gives four lists.
 
     With ``kv_int8`` both are quantized per (position, head) row over D:
     the self caches become QuantKV with scales (L, B, H, K, ctx), the cross
     caches QuantKV with scales (L, B, H, 1, T), their codes within
     ``cross_qmax`` (7 for int4).  The scales are stored in bf16, in
     float32 runs too, as the JAX package stores them."""
+
+    if isinstance(cache0, list):
+        return tuple(map(list, zip(*(_expand_caches(c, K, kv_int8, cross_qmax) for c in cache0))))
 
     def bcast(a):  # (L, B, H, ...) -> (L, B, H, K, ...)
         return a[:, :, :, None].expand(a.shape[:3] + (K,) + a.shape[3:]).contiguous()
@@ -290,7 +311,9 @@ def _grow_cache(cache, width: int):
     """A self K or V cache (L, B, H, K, ctx, D), raw or ``QuantKV`` (with
     scales (L, B, H, K, ctx)), padded to ``width`` positions.  The pad
     columns are written before any query sees them (K1/K2 mask the columns
-    after the write position)."""
+    after the write position).  A group's list grows every shard's."""
+    if isinstance(cache, list):
+        return [_grow_cache(c, width) for c in cache]
     if isinstance(cache, QuantKV):
         return QuantKV(_pad_ctx(cache.q, 4, width), _pad_ctx(cache.s, 4, width))
     return _pad_ctx(cache, 4, width)

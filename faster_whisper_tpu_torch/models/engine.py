@@ -20,6 +20,14 @@ leave their devices; ``generate_dispatch``/``generate_collect``,
 ``detect_language`` and ``align_dispatch``/``align_collect`` run each
 shard on its replica and return the rows in order.  Any other batch runs
 whole on the first replica.
+
+With a model axis (``tensor_parallel=N``) a replica is a group of N
+shards (``parallel/mesh.py::ShardedParams``), all driven by the replica's
+one host thread: every layer runs column/row-sharded, K1-K4 on each
+shard's heads, one all-reduce after each row-parallel product
+(``parallel/collectives.py``).  The beam and sampling bookkeeping runs on
+the group's lead shard, whose device holds the encoder states that
+``encode`` returns and every result.
 """
 
 import concurrent.futures
@@ -44,6 +52,8 @@ from faster_whisper_tpu_torch.models import model as M
 from faster_whisper_tpu_torch.models.config import WhisperConfig
 from faster_whisper_tpu_torch.ops.attention import mha
 from faster_whisper_tpu_torch.ops.quant import QuantizedLinear
+from faster_whisper_tpu_torch.parallel.collectives import ShardGroup
+from faster_whisper_tpu_torch.parallel.mesh import ShardedParams, shard_params
 from faster_whisper_tpu_torch.tokenizer import _LANGUAGE_CODES
 from faster_whisper_tpu_torch.utils import steady_float32
 
@@ -70,45 +80,51 @@ class AlignmentResult:
 def _teacher_forced(params, config: WhisperConfig, tokens: torch.Tensor, xa: torch.Tensor, on_scores):
     """Decoder forward over the whole token buffer (B, S) on the encoder
     states ``xa`` (B, T, d), in plain PyTorch (no kernel of the decode
-    loop).  Calls ``on_scores(layer, scores)`` with each layer's scaled
-    cross-attention scores (B, H, S, T) in f32, and returns the final
-    layer-normed states (B, S, d).  Cross K/V are computed from ``xa`` in
-    the activation dtype (int8 trees through ``int8_dense``)."""
-    dec = params["decoder"]
-    b, s = tokens.shape
-    dtype = dec["token_embed"].dtype
-    n_head = config.n_text_head
-    scale = (config.n_text_state // n_head) ** -0.5
+    loop).  Calls ``on_scores(layer, head_scores)`` once per layer, where
+    ``head_scores(head)`` is head ``head``'s scaled cross-attention scores
+    (B, S, T) in f32, on the device of the shard that holds the head
+    (``head // (H / N)`` over a model-axis group), and returns the final
+    layer-normed states (B, S, d) on the lead.  Cross K/V are computed
+    from ``xa`` in the activation dtype (int8 trees through
+    ``int8_dense``)."""
+    trees, group = M.shards(params)
+    dtype = trees[0]["decoder"]["token_embed"].dtype
+    n_head = config.n_text_head // group.size
+    scale = (config.n_text_state // config.n_text_head) ** -0.5
 
-    x = (dec["token_embed"][tokens] + dec["pos_embed"][:s][None]).to(dtype)
-    xa = xa.to(dtype)
-    i = torch.arange(s, device=x.device)
-    causal = (i[None, :] <= i[:, None])[None, None]  # (1, 1, S, S)
+    xs, causal = M._prompt_inputs(trees, group, tokens)
+    xas = group.replicated(lambda a: a.to(dtype), group.broadcast(xa))
 
     for li in range(config.n_text_layer):
-        p = M._layer(dec["layers"], li)
-        h = M.layer_norm(x, p["ln1_g"], p["ln1_b"])
-        q, k, v = M._attn_qkv(p["self_attn"], h, n_head)
-        attn = mha(q, k, v, mask=causal)
-        x = x + M._dense(M._merge_heads(attn), p["self_attn"]["wo"], p["self_attn"]["bo"])
+        ps = M._layers(trees, "decoder", li)
+        hs = M._norm(group, xs, ps, "ln1_g", "ln1_b")
+        attn = [M._merge_heads(mha(*M._attn_qkv(p["self_attn"], h, n_head), mask=mask))
+                for h, p, mask in zip(hs, ps, causal)]
+        xs = M._residual(group, xs, M._out(group, attn, ps, "self_attn"))
 
-        h = M.layer_norm(x, p["ln2_g"], p["ln2_b"])
-        cp = p["cross_attn"]
-        qx = M._split_heads(M._dense(h, cp["wq"], cp["bq"]), n_head)
-        kx = M._split_heads(M._dense(xa, cp["wk"]), n_head)
-        vx = M._split_heads(M._dense(xa, cp["wv"], cp["bv"]), n_head)
-        scores = torch.einsum("bshd,bthd->bhst", qx.float(), kx.float()) * scale
-        w = torch.softmax(scores, dim=-1)
-        attn = torch.einsum("bhst,bthd->bshd", w.to(vx.dtype).float(), vx.float()).to(vx.dtype)
-        del w
-        x = x + M._dense(M._merge_heads(attn), cp["wo"], cp["bo"])
-        on_scores(li, scores)
+        hs = M._norm(group, xs, ps, "ln2_g", "ln2_b")
+        attn, scores = [], []
+        for h, p, a in zip(hs, ps, xas):
+            cp = p["cross_attn"]
+            qx = M._split_heads(M._dense(h, cp["wq"], cp["bq"]), n_head)
+            kx = M._split_heads(M._dense(a, cp["wk"]), n_head)
+            vx = M._split_heads(M._dense(a, cp["wv"], cp["bv"]), n_head)
+            sc = torch.einsum("bshd,bthd->bhst", qx.float(), kx.float()) * scale
+            w = torch.softmax(sc, dim=-1)
+            attn.append(M._merge_heads(
+                torch.einsum("bhst,bthd->bshd", w.to(vx.dtype).float(), vx.float()).to(vx.dtype)
+            ))
+            del w
+            scores.append(sc)
+        xs = M._residual(group, xs, M._out(group, attn, ps, "cross_attn"))
+        on_scores(li, lambda head: scores[head // n_head][:, head % n_head])
         del scores
 
-        h = M.layer_norm(x, p["ln3_g"], p["ln3_b"])
-        x = x + M._mlp(p["mlp"], h)
+        hs = M._norm(group, xs, ps, "ln3_g", "ln3_b")
+        xs = M._residual(group, xs, M._mlp(group, hs, ps))
 
-    return M.layer_norm(x, dec["ln_g"], dec["ln_b"])
+    dec = trees[0]["decoder"]
+    return M.layer_norm(xs[0], dec["ln_g"], dec["ln_b"])
 
 
 def _forward_with_alignment(params, config: WhisperConfig, head_select, tokens, xa):
@@ -120,13 +136,13 @@ def _forward_with_alignment(params, config: WhisperConfig, head_select, tokens, 
     b, s = tokens.shape
     qk = torch.zeros((b, len(head_select), s, xa.shape[1]), dtype=torch.float32, device=xa.device)
 
-    def keep(layer, scores):
+    def keep(layer, head_scores):
         for k, (sel_layer, head) in enumerate(head_select):
             if sel_layer == layer:
-                qk[:, k] += scores[:, head]
+                qk[:, k] += head_scores(head).to(qk.device)
 
     x = _teacher_forced(params, config, tokens, xa, keep)
-    embed = params["decoder"]["token_embed"]
+    embed = M.lead(params)["decoder"]["token_embed"]
     return torch.matmul(x.float(), embed.float().t()), qk
 
 
@@ -214,17 +230,22 @@ def _align_forward_post(
     b, s = tokens.shape
     matrix = torch.zeros((b, s, xa.shape[1]), dtype=torch.float32, device=xa.device)
 
-    def reduce(layer, scores):
+    def reduce(layer, head_scores):
+        # each head's recipe on its shard's device, summed on the lead in
+        # head_select's order
         for sel_layer, head in head_select:
             if sel_layer == layer:
-                matrix.add_(_align_head_chain(scores[:, head], row_start, n_rows, t_frames, median_width))
+                xk = head_scores(head)
+                dev = xk.device
+                chain = _align_head_chain(xk, row_start.to(dev), n_rows.to(dev), t_frames.to(dev), median_width)
+                matrix.add_(chain.to(matrix.device))
 
     x = _teacher_forced(params, config, tokens, xa, reduce)
 
     # Probabilities over the text vocabulary [0, eot).  The prompt rows and
     # the eot row predict specials, which are clamped into range; their
     # values are never read.
-    embed = params["decoder"]["token_embed"][:eot]
+    embed = M.lead(params)["decoder"]["token_embed"][:eot]
     lg = torch.matmul(x.float(), embed.float().t())  # (B, S, eot)
     nxt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1).clamp(max=eot - 1)
     tok_lp = lg.gather(2, nxt[:, :, None])[:, :, 0]
@@ -237,6 +258,8 @@ def _tensors(tree):
     fields of ``QuantizedLinear``/``QuantKV`` and tuples, walked in order."""
     if torch.is_tensor(tree):
         yield tree
+    elif isinstance(tree, ShardedParams):
+        yield from _tensors(tree.trees)
     elif isinstance(tree, dict):
         for v in tree.values():
             yield from _tensors(v)
@@ -388,25 +411,46 @@ class WhisperEngine:
         self.replicas: List[Tuple[torch.device, dict]] = [(self.device, params)]
         self.replica_batches: List[int] = [0]  # shards each replica decoded
         self.mesh = None
+        # the seed of a sampling call that passes none; None draws fresh
+        # entropy per call, as CT2 does (``validate --mock`` fixes it)
+        self.rng_seed: Optional[int] = None
         self._pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
         self._pool_lock = threading.Lock()
 
     # -- the mesh's data axis ----------------------------------------------
 
     def set_mesh(self, mesh) -> None:
-        """One replica of the parameters per device of ``mesh``'s data
-        axis (``parallel/mesh.py``; a model axis of 1): the first device
-        keeps ``params`` (it must be their device), every other gets a copy,
-        a device listed twice a second copy.  int8 and int4 trees are
-        copied as they are."""
-        devices = [torch.device(d) for d in mesh.devices[:, 0]]
-        if mesh.shape["model"] != 1:
-            raise ValueError("WhisperEngine.set_mesh: the model axis must be 1")
-        if devices[0] != self.device:
-            raise ValueError(f"the mesh's first device {devices[0]} is not the parameters' {self.device}")
-        self.replicas = [(devices[0], self.params)] + [(d, _copy_tree(self.params, d)) for d in devices[1:]]
-        self.replica_batches = [0] * len(devices)
+        """One replica of the parameters per row of ``mesh``
+        (``parallel/mesh.py``).  With a model axis of 1 the first device
+        keeps ``params`` (it must be their device), every other gets a
+        copy, a device listed twice a second copy.  With a model axis of N
+        each row holds one group: the row's devices get the Megatron
+        shards of ``params`` (``shard_params``), ``params`` becomes the
+        first row's ``ShardedParams``, and the original tree is no longer
+        held.  int8 and int4 trees are copied or sliced as they are."""
+        rows = [[torch.device(d) for d in row] for row in mesh.devices]
+        if rows[0][0] != self.device:
+            raise ValueError(f"the mesh's first device {rows[0][0]} is not the parameters' {self.device}")
+        if isinstance(self.params, ShardedParams):
+            raise ValueError("WhisperEngine.set_mesh: the parameters are sharded already")
+        if mesh.shape["model"] == 1:
+            self.replicas = [(rows[0][0], self.params)] + [
+                (row[0], _copy_tree(self.params, row[0])) for row in rows[1:]
+            ]
+        else:
+            self.replicas = [
+                (row[0], ShardedParams(shard_params(self.params, mesh, row=i), ShardGroup(row)))
+                for i, row in enumerate(rows)
+            ]
+            self.params = self.replicas[0][1]
+        self.replica_batches = [0] * len(rows)
         self.mesh = mesh
+
+    def group_devices(self, replica: int = 0) -> List[torch.device]:
+        """The devices of a replica's model-axis group, its lead's first
+        (one device without a model axis)."""
+        params = self.replicas[replica][1]
+        return list(params.group.devices) if isinstance(params, ShardedParams) else [self.replicas[replica][0]]
 
     def _shards(self, rows: int) -> Optional[List[slice]]:
         """Equal contiguous row shards, one per replica, or None: one
@@ -473,7 +517,7 @@ class WhisperEngine:
         feats = feats.to(device=dev, dtype=torch.float32)
         # A float32 encoder's convolutions read the process's TF32 flags,
         # which another thread's VAD or log-mel turns off for its block.
-        f32 = params["encoder"]["conv1_w"].dtype == torch.float32
+        f32 = M.lead(params)["encoder"]["conv1_w"].dtype == torch.float32
         with torch.no_grad(), steady_float32() if f32 else contextlib.nullcontext():
             return M.encode(params, self.config, feats)
 
@@ -513,6 +557,8 @@ class WhisperEngine:
         replica, with its rows' temperatures and seeds: a sampling row
         draws from the seed of its row in the whole batch."""
         prompts = [list(p) for p in prompts]
+        if rng_seed is None:
+            rng_seed = self.rng_seed
         kwargs = dict(
             sot_id=self.sot_id,
             beam_size=beam_size,
@@ -581,7 +627,10 @@ class WhisperEngine:
         ``peak_bytes`` is ``argument_bytes + temp_bytes``; ``code_bytes``
         is the size of the loaded kernel libraries.  On the CPU both
         programs are None, as on a JAX backend without the analysis; the
-        weights are counted on either.  On a mesh: the first replica's."""
+        weights are counted on either.  On a mesh: the first replica's.
+        Over a model-axis group ``weights_bytes`` is the group's, each
+        program's numbers are the lead device's (its weights and peak), and
+        ``group_peak_bytes`` adds every device of the group."""
         from faster_whisper_tpu_torch.ops import _build
 
         weights_bytes = sum(t.numel() * t.element_size() for t in _tensors(self.params))
@@ -590,21 +639,33 @@ class WhisperEngine:
 
         dev = self.device
         cfg = self.config
+        devices = list(dict.fromkeys(self.group_devices()))
+        on_dev = {
+            d: sum(t.numel() * t.element_size() for t in _tensors(self.params) if t.device == d)
+            for d in devices
+        }
 
         def measure(run, input_bytes):
-            torch.cuda.synchronize(dev)
-            torch.cuda.reset_peak_memory_stats(dev)
-            before = torch.cuda.memory_allocated(dev)
+            before = {}
+            for d in devices:
+                torch.cuda.synchronize(d)
+                torch.cuda.reset_peak_memory_stats(d)
+                before[d] = torch.cuda.memory_allocated(d)
             out = run()
-            torch.cuda.synchronize(dev)
-            temp = torch.cuda.max_memory_allocated(dev) - before
-            return out, {
-                "argument_bytes": int(weights_bytes + input_bytes),
+            temp = {}
+            for d in devices:
+                torch.cuda.synchronize(d)
+                temp[d] = torch.cuda.max_memory_allocated(d) - before[d]
+            report = {
+                "argument_bytes": int(on_dev[dev] + input_bytes),
                 "output_bytes": int(sum(t.numel() * t.element_size() for t in _tensors(out))),
-                "temp_bytes": int(temp),
+                "temp_bytes": int(temp[dev]),
                 "code_bytes": 0,  # below, once the runs have loaded the kernels
-                "peak_bytes": int(weights_bytes + input_bytes + temp),
+                "peak_bytes": int(on_dev[dev] + input_bytes + temp[dev]),
             }
+            if len(devices) > 1:
+                report["group_peak_bytes"] = int(weights_bytes + input_bytes + sum(temp.values()))
+            return out, report
 
         mel = torch.zeros((batch_size, cfg.n_mels, 3000), dtype=torch.float32, device=dev)
         xa, enc = measure(lambda: self._encode_on(0, mel), mel.numel() * mel.element_size())

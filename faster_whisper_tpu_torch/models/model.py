@@ -10,6 +10,17 @@ card); decode self- and cross-attention live in ``generation/generate.py``
 (kernels K1/K2 and K4).  In an int8 tree (``ops/quant.py``) every layer
 matmul is a W8A8 ``int8_dense`` and the logits use the int8 head
 ``decoder.logits_w``.
+
+Every function takes one parameter tree or a ``ShardedParams``, one
+replica over a model-axis group (``parallel/mesh.py``,
+``parallel/collectives.py``); one tree is the group of one, and the same
+code runs both.  Activations are lists with one tensor per shard: a
+replicated value is computed once per device (``ShardGroup.replicated``);
+each shard computes its heads' column-parallel products and attention
+(K3 in the encoder at ``n_audio_head / N`` heads), then the row-parallel
+partials are all-reduced (``_row_dense``) and the replicated bias added.
+The logits run on the lead shard, or on every shard where the int8 head is
+vocab-sharded, gathered to the lead.
 """
 
 from typing import NamedTuple, Tuple
@@ -21,7 +32,9 @@ import torch.nn.functional as F
 from faster_whisper_tpu_torch.models.config import WhisperConfig
 from faster_whisper_tpu_torch.ops import _build
 from faster_whisper_tpu_torch.ops.attention import mha_full, mha_hmajor
-from faster_whisper_tpu_torch.ops.quant import QuantizedLinear, int8_dense
+from faster_whisper_tpu_torch.ops.quant import QuantizedLinear, int8_dense, int8_dense_rows
+from faster_whisper_tpu_torch.parallel import collectives
+from faster_whisper_tpu_torch.parallel.mesh import ShardedParams
 
 
 def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float = 1e-5):
@@ -63,6 +76,39 @@ def _layer(tree, i):
     return tree[i]
 
 
+def shards(params):
+    """(trees, group): a ``ShardedParams``' trees and group, or one tree
+    and the group of one on its device."""
+    if isinstance(params, ShardedParams):
+        return params.trees, params.group
+    return [params], collectives.single(params["decoder"]["token_embed"].device)
+
+
+def lead(params) -> dict:
+    """The lead shard's tree (the tree itself when there is one)."""
+    return params.trees[0] if isinstance(params, ShardedParams) else params
+
+
+def _row_dense(group, xs, ws, bs):
+    """A row-parallel product: the sum over the shards of ``xs[i] @
+    ws[i]`` (one all-reduce) plus the replicated bias, on every shard.  An
+    int8 weight goes through ``int8_dense_rows``, whose int32 sum is
+    exact."""
+    if isinstance(ws[0], QuantizedLinear):
+        return int8_dense_rows(xs, ws, bs, group)
+    ys = group.all_reduce_sum([torch.matmul(x, w) for x, w in zip(xs, ws)])
+    return group.replicated(torch.add, ys, bs)
+
+
+def _residual(group, xs, ys):
+    return group.replicated(torch.add, xs, ys)
+
+
+def _norm(group, xs, ps, g: str, b: str):
+    """Each shard's layer norm ``ps[i][g], ps[i][b]`` of ``xs[i]``."""
+    return group.replicated(lambda x, p: layer_norm(x, p[g], p[b]), xs, ps)
+
+
 def _attn_qkv(p, x, n_head):
     """Project q/k/v for self-attention on x."""
     q = _split_heads(_dense(x, p["wq"], p["bq"]), n_head)
@@ -71,9 +117,21 @@ def _attn_qkv(p, x, n_head):
     return q, k, v
 
 
-def _mlp(p, x):
-    h = F.gelu(_dense(x, p["w1"], p["b1"]))  # exact (erf) GELU
-    return _dense(h, p["w2"], p["b2"])
+def _out(group, attn, ps, name):
+    """The attention output projection of sublayer ``name`` (row-parallel)."""
+    return _row_dense(group, attn, [p[name]["wo"] for p in ps], [p[name]["bo"] for p in ps])
+
+
+def _mlp(group, hs, ps):
+    """The MLP of each shard's layer ``ps[i]``: w1 column-parallel, w2
+    row-parallel."""
+    mid = [F.gelu(_dense(h, p["mlp"]["w1"], p["mlp"]["b1"])) for h, p in zip(hs, ps)]  # exact GELU
+    return _row_dense(group, mid, [p["mlp"]["w2"] for p in ps], [p["mlp"]["b2"] for p in ps])
+
+
+def _layers(trees, part: str, i: int):
+    """Views of layer ``i`` of ``part`` ("encoder" or "decoder") per shard."""
+    return [_layer(t[part]["layers"], i) for t in trees]
 
 
 # ---------------------------------------------------------------------------
@@ -90,39 +148,45 @@ def sinusoids(length: int, channels: int) -> np.ndarray:
     return np.concatenate([np.sin(scaled_time), np.cos(scaled_time)], axis=1)
 
 
-def _encoder_layer(x, p, n_head):
-    h = layer_norm(x, p["ln1_g"], p["ln1_b"])
-    q, k, v = _attn_qkv(p["attn"], h, n_head)
-    x = x + _dense(
-        _merge_heads(mha_full(q.contiguous(), k.contiguous(), v.contiguous())),
-        p["attn"]["wo"], p["attn"]["bo"],
-    )
-    h = layer_norm(x, p["ln2_g"], p["ln2_b"])
-    return x + _mlp(p["mlp"], h)
+def _encoder_layer(group, xs, ps, n_head):
+    hs = _norm(group, xs, ps, "ln1_g", "ln1_b")
+    attn = []
+    for h, p in zip(hs, ps):
+        q, k, v = _attn_qkv(p["attn"], h, n_head)
+        attn.append(_merge_heads(mha_full(q.contiguous(), k.contiguous(), v.contiguous())))
+    xs = _residual(group, xs, _out(group, attn, ps, "attn"))
+    hs = _norm(group, xs, ps, "ln2_g", "ln2_b")
+    return _residual(group, xs, _mlp(group, hs, ps))
 
 
-def encode(params, config: WhisperConfig, mel: torch.Tensor) -> torch.Tensor:
-    """Encoder forward: (B, n_mels, 3000) mel -> (B, 1500, d) states.
-
-    Conv stem (k3 s1 + GELU, k3 s2 + GELU), then ``n_audio_layer``
-    pre-norm transformer blocks, each with one ``mha_full`` (K3 on the
-    card).  Counts its calls in ``encode.calls``."""
-    _build.count(encode, "calls")
-    enc = params["encoder"]
+def _stem(enc, mel):
+    """The conv stem and the position embedding: (B, n_mels, 3000) mel ->
+    (B, 1500, d)."""
     dtype = enc["conv1_w"].dtype
     x = mel.to(dtype)  # (B, n_mels, 3000), channels first
-
     # weights are stored (k, in, out); conv1d takes (out, in, k)
     x = F.conv1d(x, enc["conv1_w"].permute(2, 1, 0), padding=1)
     x = F.gelu(x + enc["conv1_b"][None, :, None])
     x = F.conv1d(x, enc["conv2_w"].permute(2, 1, 0), stride=2, padding=1)
     x = F.gelu(x + enc["conv2_b"][None, :, None])
-    x = x.transpose(1, 2) + enc["pos_embed"].to(dtype)  # (B, 1500, d)
+    return x.transpose(1, 2) + enc["pos_embed"].to(dtype)  # (B, 1500, d)
 
+
+def encode(params, config: WhisperConfig, mel: torch.Tensor) -> torch.Tensor:
+    """Encoder forward: (B, n_mels, 3000) mel -> (B, 1500, d) states, on
+    the lead shard's device.
+
+    Conv stem (k3 s1 + GELU, k3 s2 + GELU), then ``n_audio_layer``
+    pre-norm transformer blocks, each with one ``mha_full`` (K3 on the
+    card) per shard.  Counts its calls in ``encode.calls``."""
+    _build.count(encode, "calls")
+    trees, group = shards(params)
+    xs = group.replicated(lambda t, m: _stem(t["encoder"], m), trees, group.broadcast(mel))
+    n_head = config.n_audio_head // group.size
     for i in range(config.n_audio_layer):
-        x = _encoder_layer(x, _layer(enc["layers"], i), config.n_audio_head)
-
-    return layer_norm(x, enc["ln_post_g"], enc["ln_post_b"])
+        xs = _encoder_layer(group, xs, _layers(trees, "encoder", i), n_head)
+    enc = trees[0]["encoder"]
+    return layer_norm(xs[0], enc["ln_post_g"], enc["ln_post_b"])
 
 
 encode.calls = 0
@@ -146,40 +210,77 @@ class KVCache(NamedTuple):
     cross_v: torch.Tensor
 
 
-def _logits(params, x):
-    """Tied-embedding output projection, in f32.  An int8 tree carries its
-    own transposed int8 head ``logits_w``, whose padding columns are
-    sliced off here."""
-    embed = params["decoder"]["token_embed"]
-    lw = params["decoder"].get("logits_w")
-    if lw is not None:
-        return int8_dense(x, lw, out_dtype=torch.float32)[..., : embed.shape[0]]
-    return torch.matmul(x.float(), embed.float().t())
+def _logits(params, xs, select=None):
+    """The final layer norm of the states ``xs`` (one per shard), the rows
+    ``select`` picks, and the logits over them in f32 on the lead: the
+    tied embedding on the lead; an int8 tree's own transposed int8 head
+    ``logits_w``, whose padding columns are sliced off, on the lead, or
+    vocab-sharded on every shard and gathered to the lead."""
+    trees, group = shards(params)
+    vocab = trees[0]["decoder"]["token_embed"].shape[0]
+    lw = trees[0]["decoder"].get("logits_w")
+    width = vocab // group.size if lw is not None and lw.q.shape[-1] < vocab else vocab
+    parts = []
+    for t, x in zip(trees[: vocab // width], xs):
+        dec = t["decoder"]
+        x = layer_norm(x, dec["ln_g"], dec["ln_b"])
+        if select is not None:
+            x = select(x)
+        if lw is None:
+            parts.append(torch.matmul(x.float(), dec["token_embed"].float().t()))
+        else:
+            parts.append(int8_dense(x, dec["logits_w"], out_dtype=torch.float32)[..., :width])
+    return parts[0] if len(parts) == 1 else torch.cat(group.gather(parts), dim=-1)
 
 
-def init_cache(params, config: WhisperConfig, xa: torch.Tensor, ctx: int = None) -> KVCache:
-    """Zeroed self-attention cache of ``ctx`` slots (default: the model's
-    448) and the cross K/V of the encoder states ``xa`` (B, T, d)."""
+def _init_shard_cache(tree, config: WhisperConfig, xa: torch.Tensor, ctx: int, n_head: int) -> KVCache:
     b, t, _ = xa.shape
-    h, dh = config.n_text_head, config.n_text_state // config.n_text_head
+    dh = config.n_text_state // config.n_text_head
     L = config.n_text_layer
-    dec = params["decoder"]
+    dec = tree["decoder"]
     dtype = dec["token_embed"].dtype
-    if ctx is None:
-        ctx = config.n_text_ctx
     xa = xa.to(dtype)
     cross_k, cross_v = [], []
     for i in range(L):
         p = _layer(dec["layers"]["cross_attn"], i)
-        cross_k.append(_split_heads(_dense(xa, p["wk"]), h).transpose(1, 2))
-        cross_v.append(_split_heads(_dense(xa, p["wv"], p["bv"]), h).transpose(1, 2))
-    zeros = torch.zeros((L, b, h, ctx, dh), dtype=dtype, device=xa.device)
+        cross_k.append(_split_heads(_dense(xa, p["wk"]), n_head).transpose(1, 2))
+        cross_v.append(_split_heads(_dense(xa, p["wv"], p["bv"]), n_head).transpose(1, 2))
+    zeros = torch.zeros((L, b, n_head, ctx, dh), dtype=dtype, device=xa.device)
     return KVCache(
         self_k=zeros,
         self_v=zeros.clone(),
         cross_k=torch.stack(cross_k).contiguous(),
         cross_v=torch.stack(cross_v).contiguous(),
     )
+
+
+def init_cache(params, config: WhisperConfig, xa: torch.Tensor, ctx: int = None):
+    """Zeroed self-attention cache of ``ctx`` slots (default: the model's
+    448) and the cross K/V of the encoder states ``xa`` (B, T, d) on the
+    lead: a ``KVCache``, or over a group a list of each shard's, at
+    ``n_text_head / N`` heads on its device."""
+    trees, group = shards(params)
+    ctx = config.n_text_ctx if ctx is None else ctx
+    n_head = config.n_text_head // group.size
+    caches = [_init_shard_cache(t, config, x, ctx, n_head) for t, x in zip(trees, group.broadcast(xa))]
+    return caches if isinstance(params, ShardedParams) else caches[0]
+
+
+def _prompt_inputs(trees, group, tokens: torch.Tensor):
+    """Each shard's embedded token buffer (B, S, d), positions from 0, and
+    causal mask (1, 1, S, S): a decoder pass over whole sequences."""
+    s = tokens.shape[1]
+
+    def embed(t, tok):
+        dec = t["decoder"]
+        return (dec["token_embed"][tok] + dec["pos_embed"][:s][None]).to(dec["token_embed"].dtype)
+
+    def causal_mask(tok):
+        i = torch.arange(s, device=tok.device)
+        return (i[None, :] <= i[:, None])[None, None]
+
+    toks = group.broadcast(tokens)
+    return group.replicated(embed, trees, toks), group.replicated(causal_mask, toks)
 
 
 def decoder_prefill(
@@ -190,42 +291,48 @@ def decoder_prefill(
     xa: torch.Tensor,  # (B, T, d) encoder states
     gather_pos: torch.Tensor,  # (B, G) positions whose next-token logits to return
     ctx: int = None,
-) -> Tuple[torch.Tensor, KVCache]:
+):
     """Run the decoder over the (padded) prompt, filling the KV cache.
 
-    Returns (logits at ``gather_pos``: (B, G, n_vocab) f32, cache).
-    Padded positions write garbage into cache slots >= lengths[b]; those
-    slots are never attended and are overwritten as tokens are decoded."""
-    dec = params["decoder"]
+    Returns (logits at ``gather_pos``: (B, G, n_vocab) f32 on the lead,
+    cache: as ``init_cache``).  Padded positions write garbage into cache
+    slots >= lengths[b]; those slots are never attended and are
+    overwritten as tokens are decoded."""
+    trees, group = shards(params)
     b, s = tokens.shape
-    dtype = dec["token_embed"].dtype
-    n_head = config.n_text_head
+    n_head = config.n_text_head // group.size
 
-    x = (dec["token_embed"][tokens] + dec["pos_embed"][:s][None]).to(dtype)
-    cache = init_cache(params, config, xa, ctx=ctx)
-    i = torch.arange(s, device=x.device)
-    causal = (i[None, :] <= i[:, None])[None, None]  # (1, 1, S, S)
+    caches = init_cache(params, config, xa, ctx=ctx)
+    if not isinstance(caches, list):
+        caches = [caches]
+    xs, causal = _prompt_inputs(trees, group, tokens)
 
     for li in range(config.n_text_layer):
-        p = _layer(dec["layers"], li)
-        h = layer_norm(x, p["ln1_g"], p["ln1_b"])
-        q, k_new, v_new = _attn_qkv(p["self_attn"], h, n_head)
-        cache.self_k[li, :, :, :s] = k_new.transpose(1, 2)
-        cache.self_v[li, :, :, :s] = v_new.transpose(1, 2)
-        # Slots >= s are masked for every query, so only the first s are read.
-        attn = mha_hmajor(q, cache.self_k[li, :, :, :s], cache.self_v[li, :, :, :s], mask=causal)
-        x = x + _dense(_merge_heads(attn), p["self_attn"]["wo"], p["self_attn"]["bo"])
+        ps = _layers(trees, "decoder", li)
+        hs = _norm(group, xs, ps, "ln1_g", "ln1_b")
+        attn = []
+        for h, p, cache, mask in zip(hs, ps, caches, causal):
+            q, k_new, v_new = _attn_qkv(p["self_attn"], h, n_head)
+            cache.self_k[li, :, :, :s] = k_new.transpose(1, 2)
+            cache.self_v[li, :, :, :s] = v_new.transpose(1, 2)
+            # Slots >= s are masked for every query, so only the first s are read.
+            attn.append(_merge_heads(mha_hmajor(
+                q, cache.self_k[li, :, :, :s], cache.self_v[li, :, :, :s], mask=mask
+            )))
+        xs = _residual(group, xs, _out(group, attn, ps, "self_attn"))
 
-        h = layer_norm(x, p["ln2_g"], p["ln2_b"])
-        cp = p["cross_attn"]
-        qx = _split_heads(_dense(h, cp["wq"], cp["bq"]), n_head)
-        attn = mha_hmajor(qx, cache.cross_k[li], cache.cross_v[li])
-        x = x + _dense(_merge_heads(attn), cp["wo"], cp["bo"])
+        hs = _norm(group, xs, ps, "ln2_g", "ln2_b")
+        attn = []
+        for h, p, cache in zip(hs, ps, caches):
+            cp = p["cross_attn"]
+            qx = _split_heads(_dense(h, cp["wq"], cp["bq"]), n_head)
+            attn.append(_merge_heads(mha_hmajor(qx, cache.cross_k[li], cache.cross_v[li])))
+        xs = _residual(group, xs, _out(group, attn, ps, "cross_attn"))
 
-        h = layer_norm(x, p["ln3_g"], p["ln3_b"])
-        x = x + _mlp(p["mlp"], h)
+        hs = _norm(group, xs, ps, "ln3_g", "ln3_b")
+        xs = _residual(group, xs, _mlp(group, hs, ps))
 
-    x = layer_norm(x, dec["ln_g"], dec["ln_b"])
-    rows = torch.arange(b, device=x.device)[:, None]
-    logits = _logits(params, x[rows, gather_pos.long()])  # (B, G, V)
-    return logits, cache
+    rows = torch.arange(b, device=gather_pos.device)[:, None]
+    gather_pos = gather_pos.long()
+    logits = _logits(params, xs, select=lambda x: x[rows.to(x.device), gather_pos.to(x.device)])  # (B, G, V)
+    return logits, (caches if isinstance(params, ShardedParams) else caches[0])

@@ -34,6 +34,10 @@ _BLOCKS_PER_SM = 3
 # (b, h) sets its counter back to 0; one stream at a time may run a kernel
 # on a device).  A buffer outgrown by a larger call stays allocated, since a
 # captured CUDA graph may still address it.  And per device, the SM count.
+# Two shards of a model-axis group on one card (``device_index=[0, 0]``,
+# ``tensor_parallel=2``) share these buffers and the split plans: that is
+# safe only because one host thread launches both shards' kernels in
+# order on one stream, so that one launch ends before the next reads them.
 _buffers: Dict[Tuple[torch.device, str], List[torch.Tensor]] = {}
 _n_sm: Dict[torch.device, int] = {}
 

@@ -30,7 +30,8 @@ import torch.nn.functional as F
 
 # torch._int_mm on a CUDA tensor wants more than 16 rows and a contraction
 # and output width that are multiples of 8.  Below a contraction of 128
-# (group scales of 64 input rows or fewer), cuBLASLt on the H100 refused
+# (group scales of 64 input rows or fewer; a row-parallel shard of 64 input
+# rows, a 128-wide model over two shards), cuBLASLt on the H100 refused
 # every row count that was not a multiple of 32 (CUBLAS_STATUS_NOT_SUPPORTED
 # at 17, 40, 1500 and 3000 rows; 1504 rows ran).
 _INT_MM_MIN_ROWS = 17
@@ -83,9 +84,20 @@ def quantize_weight(
     return QuantizedLinear(q=q.reshape(wf.shape), s=scale.squeeze(-2))
 
 
+def _int_mm_rows(m: int, k: int) -> int:
+    """The rows the card's ``torch._int_mm`` takes for ``m`` rows over a
+    contraction of ``k``: at least ``_INT_MM_MIN_ROWS``, and a multiple of
+    ``_SHORT_K_ROW_ALIGN`` below a contraction of ``_SHORT_K`` (int4 groups
+    of 64 rows or fewer, a row-parallel shard of a narrow model)."""
+    rows = max(m, _INT_MM_MIN_ROWS)
+    if k < _SHORT_K:
+        rows = -(-rows // _SHORT_K_ROW_ALIGN) * _SHORT_K_ROW_ALIGN
+    return rows
+
+
 def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 @ (K, N) int8 -> (M, N) int32.  On the card, rows are
-    padded with zeros up to ``_INT_MM_MIN_ROWS`` and sliced off again."""
+    padded with zeros up to ``_int_mm_rows`` and sliced off again."""
     if not a.is_cuda:
         return torch._int_mm(a, b)
     m, k = a.shape
@@ -94,9 +106,48 @@ def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             f"int8_dense: torch._int_mm on the card needs the widths {k} and "
             f"{b.shape[1]} to be multiples of {_INT_MM_ALIGN}"
         )
-    if m < _INT_MM_MIN_ROWS:
-        return torch._int_mm(F.pad(a, (0, 0, 0, _INT_MM_MIN_ROWS - m)), b)[:m]
+    rows = _int_mm_rows(m, k)
+    if rows != m:
+        return torch._int_mm(F.pad(a, (0, 0, 0, rows - m)), b)[:m]
     return torch._int_mm(a, b)
+
+
+def _quantize_rows(xf: torch.Tensor, amax: torch.Tensor):
+    """Per-row int8 codes of ``xf`` at the scale ``amax`` / 127, and that
+    scale."""
+    sx = torch.clamp(amax * (1.0 / 127), min=1e-10)
+    return torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8), sx
+
+
+def _int8_product(xq: torch.Tensor, w: QuantizedLinear) -> torch.Tensor:
+    """xq (..., in) int8 @ w.q: the int32 product (..., out) with per-channel
+    scales; with group scales, the float32 sum over the groups of each
+    group's int32 partial times its scales (one ``torch._int_mm`` per group
+    into one int32 buffer)."""
+    x2 = xq.reshape(-1, xq.shape[-1])
+    if w.s.dim() != w.q.dim():
+        return _int_mm(x2, w.q).reshape(*xq.shape[:-1], -1)
+    n_g, d_out = w.s.shape
+    g = w.q.shape[0] // n_g
+    m = x2.shape[0]
+    rows = _int_mm_rows(m, g) if x2.is_cuda else m
+    # (nG, rows, G): each group's activation columns, contiguous, the rows
+    # padded here for the card's torch._int_mm
+    xg = F.pad(x2, (0, 0, 0, rows - m)).reshape(rows, n_g, g).transpose(0, 1).contiguous()
+    acc = torch.empty((n_g, rows, d_out), dtype=torch.int32, device=x2.device)
+    for i in range(n_g):
+        torch._int_mm(xg[i], w.q[i * g : (i + 1) * g], out=acc[i])
+    return (acc[:, :m].float() * w.s[:, None, :]).sum(dim=0).reshape(*xq.shape[:-1], d_out)
+
+
+def _rescale(acc: torch.Tensor, sx: torch.Tensor, w: QuantizedLinear, b, out_dtype):
+    if w.s.dim() == w.q.dim():
+        y = acc * sx  # the groups' scales are in the float32 sum already
+    else:
+        y = acc.float() * sx * w.s
+    if b is not None:
+        y = y + b.float()
+    return y.to(out_dtype)
 
 
 def int8_dense(
@@ -112,32 +163,30 @@ def int8_dense(
     int32 buffer of the groups' partials); each partial is rescaled by its own
     scales and the groups summed in float32, then rescaled by the rows'."""
     xf = x.float()
-    sx = xf.abs().amax(dim=-1, keepdim=True) * (1.0 / 127)
-    sx = torch.clamp(sx, min=1e-10)
-    xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
-    x2 = xq.reshape(-1, xq.shape[-1])
-    if w.s.dim() == w.q.dim():
-        n_g, d_out = w.s.shape
-        g = w.q.shape[0] // n_g
-        m = x2.shape[0]
-        rows = m
-        if x2.is_cuda:
-            rows = max(m, _INT_MM_MIN_ROWS)
-            if g < _SHORT_K:
-                rows = -(-rows // _SHORT_K_ROW_ALIGN) * _SHORT_K_ROW_ALIGN
-        # (nG, rows, G): each group's activation columns, contiguous, the
-        # rows padded here for the card's torch._int_mm
-        xg = F.pad(x2, (0, 0, 0, rows - m)).reshape(rows, n_g, g).transpose(0, 1).contiguous()
-        acc = torch.empty((n_g, rows, d_out), dtype=torch.int32, device=x2.device)
-        for i in range(n_g):
-            torch._int_mm(xg[i], w.q[i * g : (i + 1) * g], out=acc[i])
-        y = (acc[:, :m].float() * w.s[:, None, :]).sum(dim=0).reshape(*x.shape[:-1], d_out) * sx
-    else:
-        acc = _int_mm(x2, w.q)
-        y = acc.reshape(*x.shape[:-1], -1).float() * sx * w.s
-    if b is not None:
-        y = y + b.float()
-    return y.to(out_dtype or x.dtype)
+    xq, sx = _quantize_rows(xf, xf.abs().amax(dim=-1, keepdim=True))
+    return _rescale(_int8_product(xq, w), sx, w, b, out_dtype or x.dtype)
+
+
+def int8_dense_rows(xs, ws, bs, group, out_dtype=None) -> list:
+    """``int8_dense`` of a row-parallel weight over a model-axis group
+    (``parallel/collectives.py``): shard i holds the input columns
+    ``xs[i]`` and the weight's input rows ``ws[i]``; each shard gets the
+    whole product plus its copy of the replicated bias ``bs[i]``.
+
+    The per-row activation scale is the max over the WHOLE row, so the
+    shards' row maxima are all-reduced (max) before quantizing, as XLA
+    reduces an ``amax`` over a sharded axis.  Then the shards' int32
+    products are summed, exactly, before the float32 rescale: the result
+    is bit-equal to ``int8_dense`` on the unsharded weight.  With group
+    scales each shard rescales its own groups and the float32 group sums
+    are reduced, in another order than one shard's sum over all groups."""
+    xfs = [x.float() for x in xs]
+    amax = group.all_reduce_max([xf.abs().amax(dim=-1, keepdim=True) for xf in xfs])
+    coded = [_quantize_rows(xf, a) for xf, a in zip(xfs, amax)]
+    accs = group.all_reduce_sum([_int8_product(xq, w) for (xq, _), w in zip(coded, ws)])
+    return group.replicated(
+        lambda acc, c, w, b: _rescale(acc, c[1], w, b, out_dtype or xs[0].dtype), accs, coded, ws, bs,
+    )
 
 
 def _quantize_params(params: dict, dec_qmax: int, group_size: Optional[int] = None) -> dict:

@@ -1,1 +1,3 @@
-"""Meshes of devices for data-parallel serving (``parallel/mesh.py``)."""
+"""Device meshes for serving on more than one device: the data axis and
+the model axis (``parallel/mesh.py``), and the model axis's collectives
+(``parallel/collectives.py``)."""

@@ -137,7 +137,8 @@ def warm_parallel(
     batch bucket (the powers of two up to ``batch_size``, which the
     pipeline pads to) one encode and one beam decode per decode budget with
     the production arguments, plus the alignment pass with
-    ``word_timestamps``.  The JAX package runs those pieces on concurrent
+    ``word_timestamps``, on every replica of a mesh (with a model axis,
+    every group of shards).  The JAX package runs those pieces on concurrent
     threads so that their XLA compiles overlap; here nothing compiles, and
     host-driven decodes on concurrent threads only contend for the host
     and the one stream (four bucket decodes on four threads took 37.0 s
@@ -151,6 +152,7 @@ def warm_parallel(
     import numpy as np
     import torch
 
+    from faster_whisper_tpu_torch.models.engine import ShardedStates
     from faster_whisper_tpu_torch.ops import _build
     from faster_whisper_tpu_torch.tokenizer import Tokenizer
     from faster_whisper_tpu_torch.transcribe import get_suppressed_tokens
@@ -236,33 +238,37 @@ def warm_parallel(
             without_timestamps=without_timestamps,
         )
         mel = torch.zeros((b, eng.n_mels, fe.nb_max_frames), device=dev)
-        xa = eng.encode(mel)
-        for budget in budgets:
-            max_len = min(
-                len(prompt) + (budget or model.max_length), model.max_length
-            )
-            eng.generate(
-                xa,
-                [list(prompt)] * b,
-                beam_size=beam_size,
-                patience=1,
-                length_penalty=1,
-                repetition_penalty=1,
-                no_repeat_ngram_size=0,
-                max_length=max_len,
-                suppress_blank=True,
-                suppress_tokens=suppress,
-                max_initial_timestamp_index=50,
-                sampling_temperature=0.0,
-            )
-        if word_timestamps:
-            eng.align(
-                xa,
-                list(tokenizer.sot_sequence),
-                [[tokenizer.timestamp_begin]] * b,
-                [fe.nb_max_frames] * b,
-                median_filter_width=7,
-            )
+        # every bucket on every replica of a mesh (with a model axis, every
+        # group of shards); one device encodes as the pipeline does
+        for r in range(len(eng.replicas)):
+            xa = (eng.encode(mel) if len(eng.replicas) == 1
+                  else ShardedStates([eng._encode_on(r, mel)], [r]))
+            for budget in budgets:
+                max_len = min(
+                    len(prompt) + (budget or model.max_length), model.max_length
+                )
+                eng.generate(
+                    xa,
+                    [list(prompt)] * b,
+                    beam_size=beam_size,
+                    patience=1,
+                    length_penalty=1,
+                    repetition_penalty=1,
+                    no_repeat_ngram_size=0,
+                    max_length=max_len,
+                    suppress_blank=True,
+                    suppress_tokens=suppress,
+                    max_initial_timestamp_index=50,
+                    sampling_temperature=0.0,
+                )
+            if word_timestamps:
+                eng.align(
+                    xa,
+                    list(tokenizer.sot_sequence),
+                    [[tokenizer.timestamp_begin]] * b,
+                    [fe.nb_max_frames] * b,
+                    median_filter_width=7,
+                )
 
     timed("build native libraries", build)
     timed("establish (first blocking computation)", establish)

@@ -180,7 +180,9 @@ class ContinuousBatcher:
         bucket = min(bucket, self.max_batch)
         n_pad = bucket - len(batch)
         rows.extend([rows[-1]] * n_pad)
-        feats = rows[0] if len(rows) == 1 else torch.cat(rows, dim=0)
+        # on the lead shard's card, where the engine encodes and decodes
+        dev = self.model.model.device
+        feats = rows[0].to(dev) if len(rows) == 1 else torch.cat([r.to(dev) for r in rows], dim=0)
 
         enc = self.model.model.encode(feats)
         prompts = [e.prompt for e in batch] + [batch[-1].prompt] * n_pad

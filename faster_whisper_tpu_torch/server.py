@@ -520,8 +520,10 @@ def main(argv=None):
                     "than one: a data-parallel mesh, one model replica per "
                     "device, each batch split over them)")
     ap.add_argument("--tensor-parallel", type=int, default=1,
-                    help="model-axis size of the mesh (more than 1 is "
-                    "not ported: WhisperModel raises)")
+                    help="model-axis size of the mesh: each replica is "
+                    "column/row-sharded over this many of the mesh's "
+                    "devices (it must divide --num-mesh-devices and the "
+                    "head counts)")
     ap.add_argument("--no-warm", action="store_true",
                     help="skip the startup warm (precompile.warm_parallel "
                     "builds the kernels, opens the CUDA context and runs "

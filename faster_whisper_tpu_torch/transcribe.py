@@ -42,10 +42,12 @@ sends each request's chunks to a process-wide batcher
 (``scheduler.py``), where the chunks of concurrent requests share device
 batches.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: more than one device.
+``device_index=[...]`` with ``tensor_parallel=N`` builds a ("data",
+"model") mesh (``WhisperModel._setup_mesh``): one replica per row, each
+column/row-sharded over its row's N devices (``models/engine.py``).
 """
 
+import contextlib
 import itertools
 import json
 import logging
@@ -68,7 +70,6 @@ from faster_whisper_tpu_torch.generation.generate import after_first_launch
 from faster_whisper_tpu_torch.ops.mel import assemble_segments, extract_window, upload_audio
 from faster_whisper_tpu_torch.tokenizer import _LANGUAGE_CODES, Tokenizer
 from faster_whisper_tpu_torch.utils import (
-    NOT_PORTED,
     download_model,
     format_timestamp,
     get_end,
@@ -260,38 +261,48 @@ def _model_device(device, device_index: int) -> torch.device:
 class _SideEncode:
     """A window encoded ahead of the window that will read it.
 
-    On the card the encode runs on the device's speculative-encode stream
-    (``utils.side_stream``): it first waits for an event recorded on the
-    caller's stream after
-    the window was made, and the window is recorded to the side stream so
+    On the card the encode runs on the speculative-encode stream
+    (``utils.side_stream``) of every card of the model's group (``devices``,
+    the window's first; one card without a model axis): each first waits
+    for an event recorded on the caller's stream of its card after the
+    window was made, and the window is recorded to the lead's side stream so
     that its memory outlives the encode; an event recorded after the
-    encode marks its states ready.  ``result()`` makes the caller's stream
-    wait for that event and records the states to it.  On the CPU there is
-    one stream and the encode runs in line."""
+    encode on each side stream marks its part done.  ``result()`` makes
+    each card's current stream wait for its event and records the states
+    to the lead's.  On the CPU there is one stream and the encode runs in
+    line."""
 
     __slots__ = ("output", "done")
 
-    def __init__(self, encode, window: torch.Tensor):
+    def __init__(self, encode, window: torch.Tensor, devices=None):
         dev = window.device
-        self.done = None
+        self.done = []
         if dev.type != "cuda":
             self.output = encode(window)
             return
-        side = side_stream(dev, "speculative encode")
-        made = torch.cuda.Event()
-        made.record(torch.cuda.current_stream(dev))
-        side.wait_event(made)
-        window.record_stream(side)
-        with torch.cuda.stream(side):
+        devices = list(dict.fromkeys(devices or [dev]))
+        sides = []
+        for d in devices:
+            side = side_stream(d, "speculative encode")
+            made = torch.cuda.Event()
+            made.record(torch.cuda.current_stream(d))
+            side.wait_event(made)
+            sides.append(side)
+        window.record_stream(sides[0])
+        with contextlib.ExitStack() as stack:
+            for side in sides:
+                stack.enter_context(torch.cuda.stream(side))
             self.output = encode(window)
-            self.done = torch.cuda.Event()
-            self.done.record(side)
+            for side in sides:
+                done = torch.cuda.Event()
+                done.record(side)
+                self.done.append((side.device, done))
 
     def result(self) -> torch.Tensor:
-        if self.done is not None:
-            stream = torch.cuda.current_stream(self.output.device)
-            stream.wait_event(self.done)
-            self.output.record_stream(stream)
+        for d, done in self.done:
+            torch.cuda.current_stream(d).wait_event(done)
+        if self.done:
+            self.output.record_stream(torch.cuda.current_stream(self.output.device))
         return self.output
 
 
@@ -422,14 +433,17 @@ class WhisperModel:
     def _setup_mesh(self, devices: List[torch.device], tensor_parallel: int = 1):
         """More than one device (``_resolve_devices``): the reference's
         ``device_index=[0, 1, ...]`` loads one replica per GPU.  As the JAX
-        package's mesh, the devices form a ("data", "model") mesh
-        (``parallel/mesh.py``, ``self.mesh``; None on one device), and the
-        engine holds one replica of the parameters per device of the data
-        axis and splits each batch whose rows the data size divides over
-        them (``models/engine.py``).  A device may be listed twice:
-        ``[0, 0]`` puts two replicas on ``cuda:0``.  ``tensor_parallel >
-        1`` raises the JAX package's head-count error, then
-        NotImplementedError: the model axis is item 13."""
+        package's mesh, the devices form a ("data", "model") mesh of
+        ``len(devices) // tensor_parallel`` x ``tensor_parallel``
+        (``parallel/mesh.py``, ``self.mesh``; None on one device).  The
+        engine holds one replica of the parameters per row and splits each
+        batch whose rows the data size divides over them; with
+        ``tensor_parallel > 1`` each replica is column/row-sharded over its
+        row's devices in the Megatron layouts, one host thread driving the
+        group (``models/engine.py``).  A device may be listed twice:
+        ``[0, 0]`` puts two replicas, or two shards, on ``cuda:0``.
+        ``tensor_parallel`` must divide the head counts (the JAX package's
+        ValueError)."""
         from faster_whisper_tpu_torch.parallel.mesh import make_mesh
 
         self.mesh = None
@@ -441,10 +455,12 @@ class WhisperModel:
                     f"attention head counts "
                     f"({cfg.n_audio_head}/{cfg.n_text_head})"
                 )
-            raise NotImplementedError("tensor_parallel > 1 is " + NOT_PORTED.format(13))
         if len(devices) < 2:
             return
-        self.mesh = make_mesh(n_devices=len(devices), data=len(devices), model=1, devices=devices)
+        self.mesh = make_mesh(
+            n_devices=len(devices), data=len(devices) // tensor_parallel, model=tensor_parallel,
+            devices=devices,
+        )
         self.model.set_mesh(self.mesh)
 
     def _setup(
@@ -890,7 +906,7 @@ class WhisperModel:
                 pred_size = min(nb_max_frames, content_frames - pred, seek_clip_end - pred)
                 pred_window = extract_window(features_padded, pred, pred_size, nb_max_frames)
                 nonlocal spec_seek, spec_output
-                spec_output = _SideEncode(self.encode, pred_window)
+                spec_output = _SideEncode(self.encode, pred_window, self.model.group_devices())
                 spec_seek = pred
 
             (

@@ -194,9 +194,6 @@ def side_stream(device: torch.device, use: str) -> "torch.cuda.Stream":
     return stream
 
 
-# The refusal of a feature that the port does not have yet names its item.
-NOT_PORTED = "not ported to the PyTorch package yet (ROADMAP.md, Queue 1 item {})"
-
 _TF32_LOCK = threading.RLock()
 
 

@@ -413,8 +413,8 @@ def test_vocabulary_size_decides_multilingual(n_vocab, tmp_path):
 def test_arguments_outside_the_port_raise(port_weights, cfg, tokenizer, tmp_path, monkeypatch, case):
     """The card raises without one (no fallback to the host).  A list of
     two host devices loads a two-replica mesh; ``tensor_parallel=2`` on one
-    device raises the JAX package's ValueError (the model axis itself is
-    item 13, ``tests/test_torch_mesh.py``).  ``compute_type="int4"`` loads, with and
+    device raises the JAX package's ValueError (the model axis itself:
+    ``tests/test_torch_tensor_parallel.py``).  ``compute_type="int4"`` loads, with and
     without ``int4_group_size``: the JAX package's int4 tree of the same
     directory, code for code.  A directory without tokenizer.json raises
     when the local cache lacks ``openai/whisper-tiny.en`` too (the micro

@@ -82,15 +82,17 @@ def test_small_model_on_the_card_matches_the_cpu_at_every_compute_type(card):
 
 
 def test_int8_dense_on_the_card_matches_the_cpu(card):
-    """The card's int8 product (rows padded to 17 for torch._int_mm) gives
-    the CPU's exact int32 sums: at 5 rows, the decode's beam grid, and at
-    the padded 51872-column logits head."""
+    """The card's int8 product (rows padded to 17 for torch._int_mm, and
+    to a multiple of 32 below a contraction of 128) gives the CPU's exact
+    int32 sums: at 5 rows, the decode's beam grid, at the padded
+    51872-column logits head, and over 64 input rows (a row-parallel shard
+    of a 128-wide model) at 40 and 1500 rows."""
     from faster_whisper_tpu_torch.ops.quant import int8_dense, quantize_weight
 
     g = torch.Generator().manual_seed(0)
-    for rows, n_out in ((5, 1280), (40, 51872)):
-        x = torch.randn((rows, 1280), generator=g)
-        w = quantize_weight(0.02 * torch.randn((1280, n_out), generator=g))
+    for rows, n_in, n_out in ((5, 1280, 1280), (40, 1280, 51872), (40, 64, 128), (1500, 64, 128)):
+        x = torch.randn((rows, n_in), generator=g)
+        w = quantize_weight(0.02 * torch.randn((n_in, n_out), generator=g))
         cpu = int8_dense(x, w, out_dtype=torch.float32)
         w_card = type(w)(w.q.cuda(), w.s.cuda())
         card = int8_dense(x.cuda(), w_card, out_dtype=torch.float32).cpu()
@@ -350,3 +352,74 @@ def test_mock_gate_on_the_card(card):
     from faster_whisper_tpu_torch import validate
 
     assert validate.main(["--mock"]) == 0
+
+
+def _tp_segments(cfg, params, tok, compute_type, device_index, tensor_parallel, audio):
+    from faster_whisper_tpu_torch.transcribe import WhisperModel
+
+    model = WhisperModel.from_parts(params, cfg, tok, compute_type=compute_type, device="cuda",
+                                    device_index=device_index, tensor_parallel=tensor_parallel)
+    segments = model.transcribe(audio, language="en", beam_size=5, max_new_tokens=100,
+                                temperature=0.0, suppress_tokens=chip_smoke.SMALL_SPECIALS)[0]
+    return model, [(s.seek, s.start, s.end, s.tokens, s.avg_logprob) for s in segments]
+
+
+def test_tensor_parallel_on_one_card_equals_the_cpu(card):
+    """A small float32 model as one group of two shards on ``[0, 0]``,
+    through the pipeline, against the same group on the host: equal
+    tokens and times (``chip_smoke.py`` phase 14)."""
+    jfk, _ = chip_smoke.tiled_speech(11.0)
+    chip_smoke.check_small_pipeline_against_cpu(jfk, tensor_parallel=2)
+
+
+def test_tensor_parallel_over_two_cards_equals_one_card_bitwise(card):
+    """``tensor_parallel=2`` on ``[0, 1]`` (NCCL) against ``[0, 0]`` (the
+    local sum) at bf16 and int8: one rounding of a sum of two partials on
+    either transport, so equal segments and scores.  Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: the NCCL transport")
+    cfg, cpu, tok = chip_smoke.small_model_parts()
+    audio = chip_smoke.synth_audio(40.0, seed=4)
+    for compute_type in ("bfloat16", "int8_bfloat16"):
+        local, want = _tp_segments(cfg, cpu, tok, compute_type, [0, 0], 2, audio)
+        nccl, got = _tp_segments(cfg, cpu, tok, compute_type, [0, 1], 2, audio)
+        assert local.model.params.group.transport == "local"
+        assert nccl.model.params.group.transport == "nccl"
+        assert got == want and len(got) > 0
+
+
+def test_tensor_parallel_over_four_cards_gives_one_cards_tokens(card):
+    """``tensor_parallel=4`` over four cards (a small float32 model of 4
+    heads of 64, one per shard) against one card: equal tokens, times
+    within one 0.02 s quantum.  Needs four cards."""
+    import dataclasses
+
+    from faster_whisper_tpu_torch.models.load import random_params
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    cfg, _, tok = chip_smoke.small_model_parts()
+    cfg = dataclasses.replace(cfg, n_audio_state=256, n_audio_head=4, n_text_state=256, n_text_head=4)
+    params = random_params(cfg, seed=5, dtype=torch.float32, device="cpu")
+    audio = chip_smoke.synth_audio(40.0, seed=4)
+    _, want = _tp_segments(cfg, params, tok, "float32", 0, 1, audio)
+    model, got = _tp_segments(cfg, params, tok, "float32", [0, 1, 2, 3], 4, audio)
+    assert model.mesh.shape == {"data": 1, "model": 4}
+    assert [r[3] for r in got] == [r[3] for r in want] and len(got) > 0
+    for g, w in zip(got, want):
+        assert abs(g[1] - w[1]) <= 0.0201 and abs(g[2] - w[2]) <= 0.0201
+
+
+def test_a_group_on_cards_1_and_2_runs_from_card_0s_thread(card):
+    """With card 0 current, a group on cards 1 and 2 (the sequential path
+    runs in the calling thread) gives the segments of the same group on
+    ``[0, 0]``.  Needs three cards."""
+    if torch.cuda.device_count() < 3:
+        pytest.skip("needs three cards: a group on cards 1 and 2 beside card 0")
+    assert torch.cuda.current_device() == 0
+    cfg, cpu, tok = chip_smoke.small_model_parts()
+    audio = chip_smoke.synth_audio(40.0, seed=4)
+    _, want = _tp_segments(cfg, cpu, tok, "bfloat16", [0, 0], 2, audio)
+    model, got = _tp_segments(cfg, cpu, tok, "bfloat16", [1, 2], 2, audio)
+    assert model.device == torch.device("cuda", 1) and torch.cuda.current_device() == 0
+    assert got == want and len(got) > 0

@@ -5,8 +5,8 @@ the micro model on the host and splits each batch whose rows divide 2 over
 them, one host thread each (``models/engine.py``).  The JAX package's
 ``device_index=[0, 1]`` on its virtual CPU mesh (``virtual_mesh`` of
 ``tests/conftest.py``) shards the same batches.  Held here: ``make_mesh``
-shapes; the JAX package's three ValueError texts of ``tensor_parallel``;
-``tensor_parallel=2`` over enough devices naming item 13; the pipeline's
+shapes; the JAX package's three ValueError texts of ``tensor_parallel``
+(the model axis itself: ``tests/test_torch_tensor_parallel.py``); the pipeline's
 segments on the mesh equal to the JAX package's on its mesh and to the
 port's own on one device (tokens, texts, seeks and times equal,
 ``avg_logprob`` within 1e-4: float32 sums of log-probabilities in another
@@ -115,11 +115,6 @@ def test_tensor_parallel_errors_are_the_jax_packages(weights, virtual_mesh, devi
     with pytest.raises(ValueError) as ours:
         port_model(weights, **kwargs)
     assert str(ours.value) == str(ref.value)
-
-
-def test_tensor_parallel_over_enough_devices_names_item_13(weights):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        port_model(weights, device_index=[0, 1], tensor_parallel=2)
 
 
 def test_indices_outside_the_host_are_dropped(weights):

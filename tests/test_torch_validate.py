@@ -115,6 +115,20 @@ def test_mock_gate_passes_on_the_host(monkeypatch, data_dir):
     assert "PASS" in table["jfk batched"] and "segments" in table["jfk batched"]
 
 
+def test_mock_gate_samples_the_same_segments_twice(monkeypatch):
+    """The --mock gate's model samples its temperature fallback from a
+    fixed seed: two gate models give equal sampled segments."""
+    monkeypatch.setattr(port_testing, "build_test_model",
+                        functools.partial(port_testing.build_test_model, device="cpu"))
+    runs = []
+    for _ in range(2):
+        model = port_validate.mock_model()
+        assert model.model.rng_seed == port_validate.MOCK_RNG_SEED
+        segments, _ = model.transcribe(JFK, language="en", temperature=[1.0], max_new_tokens=16)
+        runs.append([(s.start, s.end, s.tokens) for s in segments])
+    assert runs[0] == runs[1] and runs[0]
+
+
 def test_gate_without_jfk_exits_2(monkeypatch, tmp_path):
     monkeypatch.setattr(port_testing, "build_test_model", lambda: None)
     rc, out, err = _run(port_validate.main, ["--mock", "--data-dir", str(tmp_path)])
