@@ -27,14 +27,21 @@ Phases, each printing its own line with its seconds:
    scripts' identity ancestry and a divergent one, P2b and P2h (int8 QK
    score sums), each with q's s8 codes equal to the plain version's (P1's
    weight codes too, but for a count one unit apart where the float32
-   softmax sum's order moves a weight across a rounding boundary);
+   softmax sum's order moves a weight across a rounding boundary) and a
+   second call equal to the first; then every form of K1/K2 and K4 on one
+   row of a batch of 8 with 20 heads: the row alone, inside its batch and
+   as heads 10-19 (a ``tensor_parallel=2`` shard) bit-equal;
 4. times: each kernel form, its plain version and, where one exists, the
    one PyTorch call that computes the same function, on the card (CUDA
    events around the replay of a CUDA graph of 20 calls, L2 warm), each
    kernel again with L2 cold (a 256 MB buffer written before each call,
    each call under its own events), beside the least time the card could
    take (its bound), and each kernel's time per call when the host issues
-   the calls one by one, as the decode loop does;
+   the calls one by one, as the decode loop does; K2 at the probes' shape
+   beside P1; K1/K2 and K4 with their plans' fixed chunks (32 and 80
+   columns) against the chunks that the earlier plans chose from B x H
+   and the SM count, at B=1 and B=8 with 20 heads and B=8 with 10, in
+   turns, and a sweep of widths at B=8;
 5. VAD: ``docker/jfk.flac`` decoded by the port's ``decode_audio`` and
    tiled to 5 minutes; the Silero VAD's probabilities and speech
    timestamps on the card against the same weights on the CPU, and its
@@ -55,7 +62,13 @@ Phases, each printing its own line with its seconds:
    and K4 in the run's activation type over a raw cache, or of K2 and
    K4's int8 form over an int8 cache, per encode (of a window, or of a
    batch of chunks) 32 of K3 in the run's activation type, and no launch
-   of any other form;
+   of any other form; then (7b) request i's last two chunks, the
+   pipeline's batch of 2, again inside a batch of 8, compared stage by
+   stage (the log-mel, the conv stem, each encoder layer, the encoder's
+   output, the cross K/V codes, the prefill's and each decode step's
+   logits; the first stage that differs, or "none", is printed), and
+   decoded at batch 8 and at batch 2 from the same encoder states, whose
+   tokens must be equal;
 8. small model: a small model on the card, at bf16, int8, float32,
    int8_float32 and int4 (per channel and in groups), against the same
    model on the CPU (at int4 its quantized decoder codes and scales must be
@@ -108,7 +121,9 @@ Phases, each printing its own line with its seconds:
     same 4 one after another through the pipeline without the scheduler
     (a scheduled chunk's tokens must equal the unscheduled one's where
     their batch buckets are equal; elsewhere the count of differing
-    tokens and the first differing step are printed); at float32 with
+    tokens and the first differing step are printed, and must be 0 when
+    phase 7b found no stage from the conv stem on that differs between
+    buckets); at float32 with
     cuDNN's TF32 at PyTorch's default, an encode on one thread while
     another sits in ``exact_float32`` must equal the encode alone, and a
     sequential and a batched request served together must equal each
@@ -161,9 +176,10 @@ Phases, each printing its own line with its seconds:
     through the pipeline and a (20 s) under ``tensor_parallel=2``: per
     decode step 4 launches per shard of K1 (K2) and K4, per encode 32 per
     shard of K3, the all-reduces' share of a step, and the segments that
-    differ from one device's (printed: the card's decode is not
-    batch-invariant); with two cards h on ``[0, 1]`` (NCCL) must equal
-    ``[0, 0]``'s, and with one a line says that NCCL was not run.
+    differ from one device's (printed; at bf16 the row-parallel partials
+    round once more; at int8, request i, none may differ); with two cards
+    h on ``[0, 1]`` (NCCL) must equal ``[0, 0]``'s, and with one a line
+    says that NCCL was not run.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as the last line
@@ -336,8 +352,7 @@ def beam_positions(B, quant, dtype, K=5, H=20, D=64, ctx=448):
     from faster_whisper_tpu_torch.ops.beam_attention import _split_plan
 
     row_bytes = D * (1 if quant else torch.finfo(dtype).bits // 8)
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    chunk, _ = _split_plan(B, H, K, ctx, row_bytes, n_sm)
+    chunk, _ = _split_plan(K, ctx, row_bytes)
     return [(B, pos) for pos in sorted({0, 1, chunk - 1, chunk, chunk + 1, ctx - 1})]
 
 
@@ -567,6 +582,66 @@ def check_cross_attention(batches=(1, 8), forms=tuple(K4_FORMS), Ts=(1500,), Ks=
     return worst
 
 
+def _part(cache, rows, heads):
+    """Rows ``rows`` and heads ``heads`` of an (L, B, H, ...) cache, raw or
+    ``QuantKV``, as a contiguous cache of its own."""
+    from faster_whisper_tpu_torch.ops.quant import QuantKV
+
+    if isinstance(cache, QuantKV):
+        return QuantKV(cache.q[:, rows, heads].contiguous(), cache.s[:, rows, heads].contiguous())
+    return cache[:, rows, heads].contiguous()
+
+
+def check_batch_invariance(B=8, H=20, row=3):
+    """Phase 3: K1/K2 (every form, write position 300: 10 of 14 chunks
+    visible, divergent beams) and K4 (every form, T=1500) on one row of a
+    batch of ``B`` with ``H`` heads: the row alone, the same row inside the
+    batch and its heads H/2..H-1 as a shard of H/2 heads give bit-equal
+    outputs (K1/K2: and bit-equal appended caches), since the kernels'
+    column chunks depend on neither the batch nor the heads.  Returns the
+    number of holds."""
+    from faster_whisper_tpu_torch.ops.beam_attention import beam_attend_append
+    from faster_whisper_tpu_torch.ops.cross_attention import cross_attend
+
+    rows, half = slice(row, row + 1), slice(H // 2, H)
+    views = {"alone": (rows, slice(None)), f"heads {H // 2}-{H - 1}": (rows, half)}
+    n = 0
+    for form, (quant, dtype) in K1_FORMS.items():
+        x = (k2_inputs if quant else k1_inputs)(B, 300, H=H, seed=31, divergent=True, dtype=dtype)
+        whole, wk, wv = _k1_call(beam_attend_append, x)
+        for name, (r, h) in views.items():
+            y = dict(x, q=x["q"][r, h].contiguous(), k_new=x["k_new"][r, h].contiguous(),
+                     v_new=x["v_new"][r, h].contiguous(), self_k=_part(x["self_k"], r, h),
+                     self_v=_part(x["self_v"], r, h), anc=x["anc"][r].contiguous(),
+                     pos_row=x["pos_row"][r].contiguous())
+            out, ok, ov = _k1_call(beam_attend_append, y)
+            torch.cuda.synchronize()
+            same = torch.equal(out, whole[r, h])
+            caches = all(
+                torch.equal(a.q, _part(b, r, h).q) and torch.equal(a.s, _part(b, r, h).s) if quant
+                else torch.equal(a, _part(b, r, h))
+                for a, b in ((ok, wk), (ov, wv))
+            )
+            print(f"{form} B={B} H={H} pos=300: row {row} {name} against the batch: output "
+                  f"bit-equal {same}, appended caches bit-equal {caches}")
+            if not (same and caches):
+                raise AssertionError(f"{form}: row {row} {name} differs from the same row in its batch")
+            n += 1
+    for form, (quant, dtype, qmax) in K4_FORMS.items():
+        layer, q, ck, cv = k4_inputs(B, quant, H=H, seed=32, dtype=dtype, qmax=qmax)
+        whole = cross_attend(layer, q, ck, cv)
+        for name, (r, h) in views.items():
+            out = cross_attend(layer, q[r, h].contiguous(), _part(ck, r, h), _part(cv, r, h))
+            torch.cuda.synchronize()
+            same = torch.equal(out, whole[r, h])
+            print(f"K4 {form} B={B} H={H} T=1500: row {row} {name} against the batch: output "
+                  f"bit-equal {same}")
+            if not same:
+                raise AssertionError(f"K4 {form}: row {row} {name} differs from the same row in its batch")
+            n += 1
+    return n
+
+
 # ---------------------------------------------------------------------------
 # K3: encoder flash attention
 # ---------------------------------------------------------------------------
@@ -721,8 +796,7 @@ def time_beam_attention(B=1, pos=447, K=5, H=20, D=64, quant=False, dtype=torch.
     )
     flops = 4 * B * H * K * n * D  # QK and PV, f32 FMA
     t["bound_ms"], t["bound_by"] = bound(nbytes, flops, F32_FLOPS)
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    chunk, n_chunks = _split_plan(B, H, K, 448, D if quant else act * D, n_sm)
+    chunk, n_chunks = _split_plan(K, 448, D if quant else act * D)
     t["shape"] = (f"B={B} H={H} K={K} ctx=448 pos={pos} D={D} {dtype_name(dtype)}"
                   f"{' int8 cache' if quant else ''}, divergent beams ({rows} distinct cache rows)"
                   f", {n_chunks} chunks of {chunk}: {n_chunks * B * H} blocks")
@@ -747,7 +821,7 @@ def time_cross_attention(quant, B=1, K=5, H=20, D=64, T=1500, dtype=torch.bfloat
     nbytes = cache_bytes + 2 * B * H * K * D * act  # K/V (and scales), q and output
     flops = 4 * B * H * K * T * D  # QK and PV, f32 FMA
     t["bound_ms"], t["bound_by"] = bound(nbytes, flops, F32_FLOPS)
-    chunk, n_chunks = _split_plan(B, H, T, torch.cuda.get_device_properties(0).multi_processor_count)
+    chunk, n_chunks = _split_plan(T)
     t["shape"] = (f"B={B} H={H} K={K} T={T} D={D} {dtype_name(dtype)}{' int8 cache' if quant else ''}"
                   f", {n_chunks} chunks of {chunk}: {n_chunks * B * H} blocks")
     return t
@@ -773,6 +847,98 @@ def time_flash_attention(B=1, S=1500, H=20, D=64, dtype=torch.bfloat16):
         t["bound_ms"], t["bound_by"] = bound(nbytes, flops, BF16_TENSOR_FLOPS)
     t["shape"] = f"({B},{S},{H},{D}) {dtype_name(dtype)}"
     return t
+
+
+def old_k1_chunk(B, H, K, ctx, row_bytes, n_sm):
+    """The column chunk that K1/K2's plan chose before it was fixed: aimed
+    at two blocks per SM from B * H and the SM count (kept here only to
+    time the fixed plan against it)."""
+    want = -(-2 * n_sm // (B * H))  # chunks per (b, h)
+    chunk = -(-ctx // want)
+    chunk = -(-chunk // 8) * 8
+    fit = max(8, 64 * 1024 // (2 * K * (row_bytes + 16)) // 8 * 8)
+    return min(chunk, 64, fit)
+
+
+def old_k4_chunk(B, H, T, n_sm):
+    """K4's chunk before its plan was fixed: three blocks per SM from B * H."""
+    want = -(-3 * n_sm // (B * H))  # chunks per (b, h)
+    chunk = -(-T // want)
+    return min(128, -(-chunk // 16) * 16)
+
+
+PLAN_SHAPES = ((1, 20), (8, 20), (8, 10))  # (B, H): the main path's, and a tensor_parallel=2 shard's
+K1_SWEEP = (16, 24, 32, 40, 48, 64)
+K4_SWEEP = (48, 64, 80, 96, 112, 128)
+
+
+def time_plans(card):
+    """Phase 4: every form of K1/K2 (K=5, ctx=448, pos=447, divergent
+    beams) and of K4 (K=5, T=1500) at each (B, H) of PLAN_SHAPES, with the
+    fixed chunk of their plans against the chunk that the earlier plan
+    chose from B * H and the SM count, timed warm in turns (earlier, fixed,
+    fixed, earlier) through the launchers (``_launch``, uncounted); then
+    at B=8, H=20 the bf16 and int8 forms over a sweep of chunk widths.
+    Prints each pair and the fixed plan's time over the earlier one's.
+    Returns {(form, B, H): (earlier ms, fixed ms)}."""
+    from faster_whisper_tpu_torch.ops import beam_attention as ba
+    from faster_whisper_tpu_torch.ops import cross_attention as ca
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    res = {}
+
+    def turns(label, B, H, old, new, blocks, call):
+        if old == new:
+            t = time_ms(call(new))
+            res[(label, B, H)] = (t, t)
+            print(f"plan {label} B={B} H={H}: the earlier plan's chunk is the fixed one, {new} columns "
+                  f"({blocks(new)} blocks), {t:.4f} ms warm on {card}")
+            return
+        ms = {old: [], new: []}
+        for chunk in (old, new, new, old):
+            ms[chunk].append(time_ms(call(chunk)))
+        t_old, t_new = (sum(ms[c]) / 2 for c in (old, new))
+        res[(label, B, H)] = (t_old, t_new)
+        print(f"plan {label} B={B} H={H}: earlier plan {old} columns ({blocks(old)} blocks) "
+              f"{'/'.join(f'{t:.4f}' for t in ms[old])} ms warm, fixed {new} columns ({blocks(new)} "
+              f"blocks) {'/'.join(f'{t:.4f}' for t in ms[new])} ms: fixed / earlier {t_new / t_old:.3f}, "
+              f"within 10%: {t_new <= 1.10 * t_old} on {card}")
+
+    k1_calls = {}
+    for label, (quant, dtype) in K1_FORMS.items():
+        row_bytes = 64 * (1 if quant else torch.finfo(dtype).bits // 8)
+        new, _ = ba._split_plan(5, 448, row_bytes)
+        for B, H in PLAN_SHAPES:
+            x = (k2_inputs if quant else k1_inputs)(B, 447, H=H, divergent=True, dtype=dtype)
+            caches = (x["self_k"], x["self_v"])  # rewritten in place with the same column
+
+            def call(chunk, x=x, caches=caches):
+                return lambda: ba._launch(x["layer"], x["pos_row"], x["q"], x["k_new"], x["v_new"],
+                                          *caches, x["anc"], chunk)
+
+            k1_calls[(label, B, H)] = call
+            turns(label, B, H, old_k1_chunk(B, H, 5, 448, row_bytes, n_sm), new,
+                  lambda c, B=B, H=H: -(-448 // c) * B * H, call)
+    k4_calls = {}
+    for form in ("bf16", "int8", "f32", "int8 f32"):
+        quant, dtype, _ = K4_FORMS[form]
+        new, _ = ca._split_plan(1500)
+        for B, H in PLAN_SHAPES:
+            layer, q, ck, cv = k4_inputs(B, quant, H=H, dtype=dtype)
+
+            def call(chunk, layer=layer, q=q, ck=ck, cv=cv):
+                return lambda: ca._launch(layer, q, ck, cv, chunk)
+
+            k4_calls[(f"K4 {form}", B, H)] = call
+            turns(f"K4 {form}", B, H, old_k4_chunk(B, H, 1500, n_sm), new,
+                  lambda c, B=B, H=H: -(-1500 // c) * B * H, call)
+    for label, widths, calls in (("K1", K1_SWEEP, k1_calls), ("K2", K1_SWEEP, k1_calls),
+                                 ("K4 bf16", K4_SWEEP, k4_calls), ("K4 int8", K4_SWEEP, k4_calls)):
+        fit = 40 if label == "K1" else 128  # K1 bf16's rows of 128 bytes fit 40 columns at K=5
+        times = [(w, time_ms(calls[(label, 8, 20)](w))) for w in widths if w <= fit]
+        print(f"plan sweep {label} B=8 H=20: " + ", ".join(f"{w} columns {t:.4f} ms" for w, t in times)
+              + f" warm on {card}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -943,6 +1109,185 @@ def run_main_path(speech):
     del model
     torch.cuda.empty_cache()
     return runs, later
+
+
+def _encoder_stages(params, cfg, mel):
+    """The encoder of ``models/model.py::encode`` stage by stage: yields
+    (name, states) after the conv stem, after each layer and after the
+    final layer norm (the encoder's output)."""
+    from faster_whisper_tpu_torch.models import model as M
+
+    trees, group = M.shards(params)
+    xs = group.replicated(lambda t, m: M._stem(t["encoder"], m), trees, group.broadcast(mel))
+    yield "conv stem", xs[0]
+    for i in range(cfg.n_audio_layer):
+        xs = M._encoder_layer(group, xs, M._layers(trees, "encoder", i), cfg.n_audio_head // group.size)
+        yield f"encoder layer {i}", xs[0]
+    enc = trees[0]["encoder"]
+    yield "encoder output", M.layer_norm(xs[0], enc["ln_post_g"], enc["ln_post_b"])
+
+
+class DecodeProbe:
+    """Within the block: the rows ``rows`` of the prefill's logits, of the
+    cross K/V codes and scales after quantization and of every decode
+    step's logits, recorded from ``generation/generate.py``."""
+
+    def __init__(self, rows):
+        self.rows, self.stages = rows, {}
+
+    def __enter__(self):
+        from faster_whisper_tpu_torch.generation import generate as G
+
+        self._saved = prefill, expand, step = G._prefill, G._expand_caches, G._gen_decoder_step
+        rows, stages = self.rows, self.stages
+        steps = stages.setdefault("steps", [])
+
+        def spy_prefill(*args, **kwargs):
+            out = prefill(*args, **kwargs)
+            stages["prefill logits"] = out[0][rows].clone()
+            return out
+
+        def spy_expand(*args, **kwargs):
+            out = expand(*args, **kwargs)
+            for name, c in (("cross K", out[2]), ("cross V", out[3])):
+                stages[f"{name} codes and scales"] = (c.q[:, rows].clone(), c.s[:, rows].clone())
+            return out
+
+        def spy_step(*args, **kwargs):
+            out = step(*args, **kwargs)
+            steps.append(out[0][rows].clone())
+            return out
+
+        spy_step.calls = 0  # the step counts its calls on whatever its module's name holds
+        self._spy = spy_step
+        G._prefill, G._expand_caches, G._gen_decoder_step = spy_prefill, spy_expand, spy_step
+        return self
+
+    def __exit__(self, *exc):
+        from faster_whisper_tpu_torch.generation import generate as G
+
+        G._prefill, G._expand_caches, G._gen_decoder_step = self._saved
+        G._gen_decoder_step.calls += self._spy.calls
+        return False
+
+
+def trace_batch_stages(later, speech, card):
+    """Phase 7b: request i's int8 model through the pipeline (batches of 8
+    and 2 chunks), the chunks and prompts recorded; then chunks 8 and 9,
+    the pipeline's batch of 2, again in a batch of 8 (chunks 2-9), stage
+    by stage against the batch of 2: the log-mel, the conv stem, each
+    encoder layer, the encoder's output, the cross K/V codes and scales,
+    the prefill's logits and each decode step's logits.  Prints the first
+    stage at which they differ, or "none", and returns the first from the
+    conv stem on (the log-mel is computed once per request, over all of its
+    chunks, and no batch reaches it).  Then the two chunks decoded at batch
+    8 and at batch 2 from the same encoder states (the batch of 8's): their
+    tokens must be equal."""
+    from faster_whisper_tpu_torch.transcribe import BatchedInferencePipeline, WhisperModel
+
+    cfg = later["cfg"]
+    model = WhisperModel.from_parts(later["params"], cfg, later["tok"], compute_type="int8")
+    eng, fe = model.model, model.feature_extractor
+    params = eng.replicas[0][1]
+    features, dispatch = fe.chunk_features, eng.generate_dispatch
+    rec = {"dispatch": []}
+
+    def spy_features(audio, starts, lengths):
+        rec["mel"] = (audio, list(starts), list(lengths))
+        rec["features"] = out = features(audio, starts, lengths)
+        return out
+
+    def spy_dispatch(encoder_output, prompts, **kwargs):
+        rec["dispatch"].append((int(encoder_output.shape[0]), [list(p) for p in prompts], kwargs))
+        return dispatch(encoder_output, prompts, **kwargs)
+
+    fe.chunk_features, eng.generate_dispatch = spy_features, spy_dispatch
+    try:
+        list(BatchedInferencePipeline(model).transcribe(
+            speech, language="en", beam_size=5, batch_size=8, max_new_tokens=128)[0])
+    finally:
+        del fe.chunk_features, eng.generate_dispatch
+    sizes = [d[0] for d in rec["dispatch"]]
+    if sizes != [8, 2]:
+        raise AssertionError(f"request i's pipeline ran batches of {sizes}, the trace expects [8, 2]")
+    audio, starts, lengths = rec["mel"]
+    feats = rec["features"]
+    big, small = slice(2, 10), slice(8, 10)  # chunks 8-9: rows 6-7 of the one, 0-1 of the other
+    in_big, in_small = slice(6, 8), slice(0, 2)
+    stages = []
+
+    def compare(name, a, b):
+        same = torch.equal(a, b)
+        stages.append((name, same, 0.0 if same else (a.float() - b.float()).abs().max().item()))
+
+    with torch.no_grad():
+        m8 = features(audio, starts[big], lengths[big])
+        m2 = features(audio, starts[small], lengths[small])
+        compare("log-mel", m8[in_big], m2[in_small])
+        kept = {name: x[in_small].clone() for name, x in _encoder_stages(params, cfg, feats[small].float())}
+        for name, x in _encoder_stages(params, cfg, feats[big].float()):
+            compare(name, x[in_big], kept[name])
+            last = x
+        enc8, enc2 = eng.encode(feats[big]), eng.encode(feats[small])
+        if not torch.equal(last, enc8):
+            raise AssertionError("the encoder traced stage by stage differs from the engine's encode")
+        caught = {}
+        for name, enc, rows, (_, prompts, kwargs) in (("small", enc2, in_small, rec["dispatch"][1]),
+                                                       ("big", enc8, in_big, rec["dispatch"][0])):
+            with DecodeProbe(rows) as probe:
+                eng.generate_collect(eng.generate_dispatch(enc, prompts, **kwargs))
+            caught[name] = probe.stages
+        a, b = caught["big"], caught["small"]
+        for name in ("cross K codes and scales", "cross V codes and scales"):
+            stages.append((name, all(torch.equal(x, y) for x, y in zip(a[name], b[name])), None))
+        compare("prefill logits", a["prefill logits"], b["prefill logits"])
+        for i, (x, y) in enumerate(zip(a["steps"], b["steps"])):
+            compare(f"decode step {i} logits", x, y)
+        # the same encoder states at batch 8 and at batch 2
+        _, prompts, kwargs = rec["dispatch"][0]
+        at8 = eng.generate_collect(eng.generate_dispatch(enc8, prompts, **kwargs))[6:8]
+        _, prompts, kwargs = rec["dispatch"][1]
+        at2 = eng.generate_collect(eng.generate_dispatch(enc8[in_big].contiguous(), prompts, **kwargs))
+    def first_differing(rest):
+        first = next((s for s in rest if not s[1]), None)
+        if first is None:
+            return "none", ""
+        return first[0], "" if first[2] is None else f" (max|diff| {first[2]:.3e})"
+
+    where, diff = first_differing(stages)
+    # The pipeline and the batcher compute a request's log-mel once over
+    # all of its chunks, never per batch: what a batch bucket can change
+    # starts at the conv stem.
+    batched, batched_diff = first_differing(stages[1:])
+    print(f"batch stages, request i's int8 model, chunks 8-9 in a batch of 8 (chunks 2-9) against "
+          f"the pipeline's batch of 2: {sum(s[1] for s in stages)} of {len(stages)} stages bit-equal "
+          f"({len(a['steps'])} and {len(b['steps'])} decode steps); the first stage that differs: "
+          f"{where}{diff}; from the conv stem on (the stages a batch bucket reaches; the log-mel is "
+          f"computed per request): {batched}{batched_diff} on {card}")
+    # The decoder's LayerNorm on a step's rows (B x 5 beams): 10 rows alone
+    # against the same rows inside 40, on random bf16 states and weights.
+    from faster_whisper_tpu_torch.models.model import layer_norm
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    ln_differ = 0
+    for _ in range(20):
+        xs = (3 * torch.randn((40, cfg.n_text_state), generator=g, device="cuda")).to(torch.bfloat16)
+        w, bias = (torch.randn(cfg.n_text_state, generator=g, device="cuda").to(torch.bfloat16)
+                   for _ in range(2))
+        ln_differ += int((layer_norm(xs, w, bias)[:10] != layer_norm(xs[:10].contiguous(), w, bias))
+                         .any(-1).sum())
+    print(f"the decoder's layer_norm over 10 rows alone against the same rows inside 40 (bf16, width "
+          f"{cfg.n_text_state}, 20 draws): {ln_differ} of 200 rows differ on {card}")
+    toks8 = [list(r.sequences_ids[0]) for r in at8]
+    toks2 = [list(r.sequences_ids[0]) for r in at2]
+    print(f"int8 tokens of chunks 8-9 decoded at batch 8 and at batch 2 from the same encoder states: "
+          f"equal {toks8 == toks2} ({[len(t) for t in toks8]} and {[len(t) for t in toks2]} tokens) on {card}")
+    if toks8 != toks2:
+        raise AssertionError("a chunk's int8 tokens differ at batch 8 and at batch 2 from the same "
+                             "encoder states")
+    del model
+    torch.cuda.empty_cache()
+    return batched
 
 
 def run_batched(model, name, audio, cfg, stats=None, **kwargs):
@@ -2096,13 +2441,20 @@ def run_serving(later, jfk, ct2_int8, card):
                    if bucket == unscheduled[row][0]]
     other = [(row, bucket, unscheduled[row][0], *token_diff(toks, unscheduled[row][1]))
              for row, bucket, toks in scheduled if bucket != unscheduled[row][0]]
+    n_other = sum(o[3] for o in other)
     print(f"scheduled chunks against the unscheduled pipeline's: {len(same_bucket)} in the same bucket, "
           f"equal tokens {sum(eq for _, eq in same_bucket)}; {len(other)} in another bucket, "
-          f"(row, scheduled bucket, unscheduled bucket, tokens that differ, first step that differs): "
-          f"{other}")
+          f"{sum(o[3] == 0 for o in other)} of them with equal tokens, {n_other} int8 tokens differ "
+          f"across buckets (row, scheduled bucket, unscheduled bucket, tokens that differ, first step "
+          f"that differs): {other}; the first stage that differs between buckets (phase 7b): "
+          f"{later['batch_stage']}")
     if not all(eq for _, eq in same_bucket):
         raise AssertionError("a scheduled chunk's tokens differ from the unscheduled pipeline's in the "
                              "same batch bucket")
+    if later["batch_stage"] == "none" and n_other:
+        raise AssertionError("a scheduled chunk's int8 tokens differ from the unscheduled pipeline's in "
+                             "another batch bucket, though no stage of the pipeline differs between "
+                             "buckets")
     del model, pipeline
     torch.cuda.empty_cache()
 
@@ -2588,6 +2940,7 @@ def check_probes():
         args = (layer, x["pos"], x["q"], x["self_k"], x["self_v"], x["anc"])
         ref, rq, rp = probes.attend_only_plain(*args, codes=True)
         out, oq, op = probes.attend_only(*args, codes=True)
+        out2 = probes.attend_only(*args)  # again: no state is left between calls
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         tol = BF16_REL_TOL * ref.float().abs().max().item()
@@ -2596,8 +2949,8 @@ def check_probes():
         print(f"P1 attend_only B=8 H=20 K=5 ctx=192 pos={pos} "
               f"{'divergent' if divergent else 'identity'} ancestry: max|err| {err:.3e} (tolerance "
               f"{tol:.3e}); q codes equal: {torch.equal(oq, rq)}; weight codes: {n} of {rp.numel()} "
-              f"differ (max {worst})")
-        if not err <= tol or not torch.equal(oq, rq) or worst > 1:
+              f"differ (max {worst}); a second call equal: {torch.equal(out, out2)}")
+        if not err <= tol or not torch.equal(oq, rq) or worst > 1 or not torch.equal(out, out2):
             raise AssertionError(f"P1 disagrees with its plain version at pos={pos}, divergent={divergent}")
         errs["P1"], moved = max(errs["P1"], err), moved + n
     x = probe_inputs(120, False, seed=3)
@@ -2609,7 +2962,7 @@ def check_probes():
         for layer in (0, probes.PROBE_SHAPE["L"] - 1):
             ref, rq = plain(layer, q, kq, codes=True)
             out, oq = fn(layer, q, kq, codes=True)
-            out2 = fn(layer, q, kq)  # again: P2h's sums and tickets are back at 0
+            out2 = fn(layer, q, kq)  # again: no state is left between calls
             torch.cuda.synchronize()
             mag = probes.score_magnitudes(layer, q, kq, perhead)
             err = (out - ref).abs()
@@ -2630,8 +2983,11 @@ def time_probes():
     kernels.  P1's bound counts the K and V rows that the visible columns
     need (codes and scales), the ancestry, q and the output; P2's the
     layer's K codes, q and the output; both beside their s8 products over
-    the int8 tensor-core peak.  No one PyTorch call computes either."""
+    the int8 tensor-core peak.  No one PyTorch call computes either.  K2
+    (``beam_attend_append`` over the same int8 cache, appending at 120) is
+    timed beside P1 as "K2 probe", with K2's bound."""
     from faster_whisper_tpu_torch.ops import probes
+    from faster_whisper_tpu_torch.ops.beam_attention import beam_attend_append, beam_attend_append_ref
 
     dims = probes.PROBE_SHAPE
     B, H, K, ctx, D = dims["B"], dims["H"], dims["K"], dims["ctx"], dims["D"]
@@ -2649,6 +3005,18 @@ def time_probes():
     times["P1"]["shape"] = (f"B={B} H={H} K={K} ctx={ctx} D={D} pos={pos} identity ancestry, "
                             f"{nbytes / 1e6:.1f} MB visible ({full / 1e6:.1f} MB the whole layer, "
                             f"{full / HBM_BYTES_PER_S * 1e3:.5f} ms)")
+    k2_args = (layer, x["pos"], x["q"], x["k_new"], x["v_new"], x["self_k"], x["self_v"], x["anc"])
+    times["K2 probe"] = t = _timed(lambda: beam_attend_append(*k2_args),
+                                   lambda: beam_attend_append_ref(*k2_args))
+    # K2's bytes, as time_beam_attention counts them: the visible rows
+    # before pos, the ancestry, q, the new rows and the output, and the two
+    # written columns
+    before = x["anc"][:, :, :pos].sort(dim=1).values
+    rows_k2 = B * pos + int((before[:, 1:] != before[:, :-1]).sum())
+    k2_bytes = (rows_k2 * H * (D + 2) * 2 + B * K * n * 4 + 4 * B * H * K * D * 2
+                + 2 * B * H * K * (D + 2))
+    t["bound_ms"], t["bound_by"] = bound(k2_bytes, 4 * B * H * K * n * D, F32_FLOPS)
+    t["shape"] = f"K2 at the probes' shape: B={B} H={H} K={K} ctx={ctx} D={D} pos={pos} identity ancestry"
     kq = x["self_k"].q
     p2_bytes = B * H * K * ctx * D + B * H * K * D * 2
     for name, fn, q, out_bytes in (
@@ -2681,6 +3049,9 @@ def run_probe_sweeps(card):
               f"{graph:.4f} ms replayed from a CUDA graph (B=8 H=20 K=5 ctx=192, 64 steps) on {card}")
     print("probe sweep: 'full' is the port's K2 (append + attend, its products not on s8); the "
           f"TPU script's full column was an s8 kernel; launches {counts}")
+    for a, b in (("attend-only", "full"), ("per-head dots", "batched H-dot")):
+        print(f"probe sweep: {a} / {b} = {res[a][0] / res[b][0]:.3f} issued from the host, "
+              f"{res[a][1] / res[b][1]:.3f} replayed from a CUDA graph")
     if not all(counts[k] for k in ("p1", "p2b", "p2h", "k2")):
         raise AssertionError(f"the probe sweeps did not launch every probe kernel: {counts}")
     return counts, res
@@ -2730,7 +3101,7 @@ class RungProbe:
 
 def time_ladder_kernels(card):
     """K1 and K2 at B=1, K=5 on each rung's table (64, 128, 256 and 448
-    columns, the ladder keeping the full table's chunks) against the full
+    columns, split into the same chunks as every table) against the full
     table holding the same first columns, at a write position in the
     rung's upper half: the outputs must be equal bit for bit, and the
     device times show what the ladder saves per layer."""
@@ -2755,7 +3126,7 @@ def time_ladder_kernels(card):
 
                 def call(x=x, caches=caches):
                     return beam_attend_append(x["layer"], x["pos_row"], x["q"], x["k_new"], x["v_new"],
-                                              *caches, x["anc"], plan_ctx=448)[0]
+                                              *caches, x["anc"])[0]
 
                 outs[ctx], t[ctx] = call(), time_ms(call)
             out[(name, width)] = t
@@ -2965,8 +3336,7 @@ def _one_step_logits(model, xa, tok0):
     tok = tok0[:, None].expand(b, K).contiguous()
     pos = torch.full((b, K), P, dtype=torch.long, device="cuda")
     anc = torch.arange(K, dtype=torch.int32, device="cuda")[None, :, None].expand(b, K, ctx).contiguous()
-    logits, _, _ = G._gen_decoder_step(params, eng.config, tok, pos, pos[:, 0].int(), sk, sv, ck, cv,
-                                       anc, plan_ctx=ctx)
+    logits, _, _ = G._gen_decoder_step(params, eng.config, tok, pos, pos[:, 0].int(), sk, sv, ck, cv, anc)
     return logits
 
 
@@ -3061,9 +3431,11 @@ def run_tensor_parallel(later, speech, card):
     launches per shard of K1 (K2) and K4, per encode 32 of K3; the
     transport, wall seconds, ms per step, the card's peak (both shards),
     the all-reduces' share of a step, and the segments that differ from
-    one device's request (printed, not held: the card's decode is not
-    batch-invariant).  On two or more cards h on ``[0, 1]`` (NCCL) must
-    give ``[0, 0]``'s segments.  Returns {request: launch counts}."""
+    one device's request (printed; at int8, request i, none may differ:
+    every product is exact, every all-reduce an integer sum, and K1/K2/K4
+    split a row alike at 10 heads as at 20).  On two or more cards h on
+    ``[0, 1]`` (NCCL) must give ``[0, 0]``'s segments.  Returns {request:
+    launch counts}."""
     from faster_whisper_tpu_torch.transcribe import WhisperModel
 
     params, cfg, tok = later["params"], later["cfg"], later["tok"]
@@ -3115,8 +3487,15 @@ def run_tensor_parallel(later, speech, card):
 
     tp8 = WhisperModel.from_parts(params, cfg, tok, compute_type="int8", device_index=[0, 0],
                                   tensor_parallel=2)
-    runs["tp i"], _ = batched(tp8, "i: int8, tensor_parallel=2 on [0, 0]", later["i_segments"],
-                              ("k2", "k4_int8", "k3"), 6 * cfg.n_text_layer)
+    runs["tp i"], i_segments = batched(tp8, "i: int8, tensor_parallel=2 on [0, 0]", later["i_segments"],
+                                       ("k2", "k4_int8", "k3"), 6 * cfg.n_text_layer)
+    # at int8 every product is exact, every all-reduce an integer sum, and
+    # K1/K2/K4 split a row alike at 10 heads as at 20: one device's segments
+    n_differ = differ(i_segments, later["i_segments"])
+    print(f"request i under tensor_parallel=2: {n_differ} of {len(later['i_segments'])} segments differ "
+          f"from one device's")
+    if n_differ:
+        raise AssertionError("request i (int8) under tensor_parallel=2 differs from one device's")
     del tp8
     torch.cuda.empty_cache()
 
@@ -3179,6 +3558,8 @@ def main():
     probe_errs, p1_moved = check_probes()
     errs.update(probe_errs)
     print(f"P1 weight codes one unit from the plain version's: {p1_moved}")
+    print(f"K1/K2/K4: {check_batch_invariance()} holds of a row alone and as a head slice against "
+          f"its batch, all bit-equal")
     phase("kernels against plain versions", t0)
 
     t0 = time.perf_counter()
@@ -3206,6 +3587,11 @@ def main():
     for label, t in time_probes().items():
         times[label] = t
         print_times(label, t, card)
+    print(f"P1 against K2 at the probes' shape (B=8 H=20 K=5 ctx=192 pos=120): P1 {times['P1']['ms']:.4f} "
+          f"ms warm, K2 {times['K2 probe']['ms']:.4f} ms (P1 / K2 = "
+          f"{times['P1']['ms'] / times['K2 probe']['ms']:.3f}); P2h {times['P2h']['ms']:.4f} ms, P2b "
+          f"{times['P2b']['ms']:.4f} ms (P2h / P2b = {times['P2h']['ms'] / times['P2b']['ms']:.3f}) on {card}")
+    time_plans(card)
     phase("times", t0)
 
     t0 = time.perf_counter()
@@ -3219,6 +3605,9 @@ def main():
     t0 = time.perf_counter()
     runs, later = run_main_path(speech)
     phase("main path", t0)
+    t0 = time.perf_counter()
+    later["batch_stage"] = trace_batch_stages(later, speech, card)
+    phase("batch stages", t0)
     t0 = time.perf_counter()
     check_small_model_against_cpu()
     check_small_pipeline_against_cpu(jfk)

@@ -44,11 +44,13 @@
 //
 // What the design does about it: the launch splits the columns.  Block
 // (chunk, b*H + h) owns `chunk` columns (ops/beam_attention.py::_split_plan
-// picks the chunk from ctx, B, H, K, the row size and the SM count, never
-// from pos, so every step of a decode has the same grid: 14 chunks of 32
-// columns, 280 blocks, at B=1, H=20, K=5, ctx=448).  A block whose chunk
-// starts past pos exits at once, and the others count only the chunks that
-// hold a visible column.  Each block:
+// picks the chunk from K and the row size alone: 32 columns at K=5, 14
+// chunks at ctx=448, 280 blocks at B=1, H=20 and 2240 at B=8).  It never
+// depends on B, H, the SM count, ctx or pos, so a row's chunks, and with
+// them the order in which its partials merge, are the same in any batch,
+// in a slice of its heads, on any card and on every step of a decode.  A
+// block whose chunk starts past pos exits at once, and the others count
+// only the chunks that hold a visible column.  Each block:
 //
 //   1. reads its columns' ancestry and q (with pos, not after it), and
 //      marks per column the slots that some query sees there;
@@ -65,7 +67,8 @@
 //      folded into the weights) and PV in f32 with 16-byte V reads;
 //   5. writes (m, l, o) to scratch; the block that finishes a (b, h) last,
 //      found by a __threadfence and an atomic ticket per (b, h), merges the
-//      chunks with exp(m_i - M) rescaling, writes the output in the
+//      chunks with exp(m_i - M) rescaling, reading them in chunk order
+//      (never in the order they arrived), writes the output in the
 //      activation type and sets its ticket back to 0 for the next call.
 //
 // Column pos comes from the new rows (copied, or quantized in shared

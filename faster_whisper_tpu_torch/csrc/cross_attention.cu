@@ -26,15 +26,18 @@
 //
 // What the design does about it: the launch splits T so that enough blocks
 // stream the cache at once.  Block (chunk, b*H + h) owns `chunk` columns
-// (ops/cross_attention.py::_split_plan aims the grid at three blocks per
-// SM: 19 chunks of 80 columns, 380 blocks at B=1, H=20, T=1500).  It brings its K and V rows into shared memory with
+// (ops/cross_attention.py::_split_plan: 80 columns for every B, H and
+// card, 19 chunks at T=1500, 380 blocks at B=1, H=20 and 3040 at B=8, so
+// that a row's partials merge in one order in any batch and in a slice of
+// its heads).  It brings its K and V rows into shared memory with
 // 16-byte cp.async copies in two groups, so the V copy lands while the
 // scores are computed; rows are padded by 16 bytes so that the score pass,
 // one thread per column reading its whole row, is free of bank conflicts.
 // Each block keeps the chunk's max m, sum l and K x D PV sums o in f32
 // (the int8 V scales folded into the weights) and writes them to scratch.
 // The block that finishes a (b, h) last, found by a __threadfence and an
-// atomic ticket per (b, h), merges the chunks with exp(m_i - M) rescaling,
+// atomic ticket per (b, h), merges the chunks in chunk order (never in the
+// order they arrived) with exp(m_i - M) rescaling,
 // writes the output and sets the ticket back to 0 for the next call: one
 // launch per call.  Plain FMA, no tensor cores (K <= 16 rows per (b, h)).
 

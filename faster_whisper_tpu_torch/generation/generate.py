@@ -11,9 +11,9 @@ default): as in the JAX package, the loop runs its early steps on small
 ctx-sized tables (64 positions, doubling as the positions fill) and
 zero-pads every such table to the next rung's size when the host's step
 counter reaches the rung's end (``_ctx_phases``, ``_pad_ctx``).  The pad
-regions are never read before they are written, and K1/K2 keep the full
-table's column chunks on every rung (``plan_ctx``), whose merge reads only
-the chunks up to the write position: the ladder changes no output.
+regions are never read before they are written, and K1/K2 split every
+table into the same chunks of columns, whose merge reads only the chunks
+up to the write position: the ladder changes no output.
 
 Score semantics: ``score = cum_logprob / (gen_len ** length_penalty)``,
 where ``cum_logprob`` sums the T=1 log-probabilities of the chosen tokens
@@ -141,12 +141,10 @@ def _gen_decoder_step(
     cross_k,  # (L, B, H, T, D) or QuantKV, shared across beams
     cross_v,
     anc: torch.Tensor,  # (B, K, ctx) int32 ancestry slot map
-    plan_ctx: Optional[int] = None,  # the decode's full table (the ctx ladder)
 ):
     """One decode step over the beam grid; returns (logits (B, K, V) f32,
     self_k, self_v).  Per layer, self-attention is one
-    ``beam_attend_append`` (K1, or K2 on the int8 cache, on the card, with
-    the column chunks of a table of ``plan_ctx`` positions) and
+    ``beam_attend_append`` (K1, or K2 on the int8 cache, on the card) and
     cross-attention one ``cross_attend`` (K4) per shard.  Over a
     model-axis group (``ShardedParams``) the caches are lists, one per
     shard at H/N heads, and the lead's token, positions and ancestry map
@@ -188,7 +186,6 @@ def _gen_decoder_step(
                 sv[j],
                 ancs[j],
                 pos_bk=poss[j],
-                plan_ctx=plan_ctx,
             )
             attn.append(merge(a))
         xs = _residual(group, xs, _out(group, attn, ps, "self_attn"))
@@ -518,7 +515,7 @@ def beam_search(
         # and logits are never read again.
         cur_logits, self_k, self_v = _gen_decoder_step(
             params, config, new_tok, write_pos_bk, write_pos.int(),
-            self_k, self_v, cross_k, cross_v, anc, plan_ctx=ctx,
+            self_k, self_v, cross_k, cross_v, anc,
         )
 
         cur_len_new = torch.clamp(cur_len + 1, max=ctx)
@@ -687,7 +684,7 @@ def sample(
         cur_logits, self_k, self_v = _gen_decoder_step(
             params, config, torch.where(finished, 0, next_tok), write_pos,
             write_pos.max(dim=1).values.int(), self_k, self_v, cross_k,
-            cross_v, anc_id, plan_ctx=ctx,
+            cross_v, anc_id,
         )
         step_i += 1
 

@@ -68,7 +68,7 @@ SIGNATURES = {
     "probes.cu": {
         "fwt_attend_only_int8": [_P] * 10 + [_I] * 6 + [_F, _P],
         "fwt_scores_batched_int8": [_P] * 4 + [_I] * 6 + [_P],
-        "fwt_scores_perhead_int8": [_P] * 6 + [_I] * 6 + [_P],
+        "fwt_scores_perhead_int8": [_P] * 4 + [_I] * 6 + [_P],
     },
     # returns 0 or a negative code for a malformed stream
     "flac_decoder.cpp": {

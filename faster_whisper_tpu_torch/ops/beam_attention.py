@@ -33,7 +33,7 @@ from typing import Optional, Tuple
 import torch
 
 from faster_whisper_tpu_torch.ops import _build
-from faster_whisper_tpu_torch.ops.cross_attention import _buffer, _sm_count
+from faster_whisper_tpu_torch.ops.cross_attention import _buffer
 from faster_whisper_tpu_torch.ops.quant import QuantKV, quantize_kv
 
 NEG_INF = -1e30
@@ -41,30 +41,30 @@ NEG_INF = -1e30
 _HEAD_DIM = 64  # csrc/beam_attention.cu: K1_D
 _MAX_BEAMS = 32  # csrc/beam_attention.cu: K1_MAXK, one bit per beam
 _MAX_CHUNK = 64  # csrc/beam_attention.cu: K1_MAX_CHUNK
+_CHUNK = 32  # columns per block, chosen by timing K1/K2 on an H100 (PERF.md section 6)
 _CHUNK_ALIGN = 8
-_BLOCKS_PER_SM = 2
 _ROW_BUDGET = 64 * 1024  # bytes of K and V row slots a block holds in shared memory
 _ROW_PAD = 16  # csrc/beam_attention.cu: row_stride, a row and 16 bytes
 
 
 @functools.lru_cache(maxsize=None)
-def _split_plan(b: int, h: int, k: int, ctx: int, row_bytes: int, n_sm: int = 132) -> Tuple[int, int]:
+def _split_plan(k: int, ctx: int, row_bytes: int) -> Tuple[int, int]:
     """(chunk, n_chunks): K1/K2 split the ctx columns into n_chunks chunks
-    of ``chunk``, aiming the grid of n_chunks * b * h blocks at two blocks
-    per SM.  A chunk is a multiple of 8 columns (rounded up), at most 64,
-    and small enough that its k * chunk K and V row slots (``row_bytes``
-    and 16 bytes of padding each) fit in 64 KB of shared memory (never
-    below 8).  The plan does not depend on the write position, so every
-    step of a decode has the same grid.  At B=1, H=20, K=5, ctx=448: 14
-    chunks of 32 (bf16 or int8 rows), 280 blocks."""
-    if min(b, h, k, ctx, row_bytes) < 1:
-        raise ValueError(f"beam_attend_append: no work in B={b}, H={h}, K={k}, ctx={ctx}")
-    want = -(-_BLOCKS_PER_SM * n_sm // (b * h))  # chunks per (b, h)
-    chunk = -(-ctx // want)
-    chunk = -(-chunk // _CHUNK_ALIGN) * _CHUNK_ALIGN
+    of ``chunk`` columns: 32, or fewer where the k * chunk K and V row
+    slots (``row_bytes`` and 16 bytes of padding each) would not fit in 64
+    KB of shared memory (a multiple of 8, never below 8).  The chunk
+    depends on the beam count and the row size alone, never on the batch,
+    the heads, the card's SM count, ctx or the write position: a larger
+    batch or more heads only add blocks, and a row's softmax partials merge
+    in the same order whatever the batch bucket, the heads of a
+    ``tensor_parallel`` shard, the card or the ctx ladder's rung.  At K=5
+    with bf16 or int8 rows: 14 chunks of 32 at ctx=448 (280 blocks at B=1,
+    H=20; 2240 at B=8)."""
+    if min(k, ctx, row_bytes) < 1:
+        raise ValueError(f"beam_attend_append: no work in K={k}, ctx={ctx}")
     slot = row_bytes + _ROW_PAD
     fit = max(_CHUNK_ALIGN, _ROW_BUDGET // (2 * k * slot) // _CHUNK_ALIGN * _CHUNK_ALIGN)
-    chunk = min(chunk, _MAX_CHUNK, fit)
+    chunk = min(_CHUNK, _MAX_CHUNK, fit)
     return chunk, -(-ctx // chunk)
 
 
@@ -79,7 +79,6 @@ def beam_attend_append(
     anc: torch.Tensor,  # (B, K, ctx) int32
     *,
     pos_bk: Optional[torch.Tensor] = None,  # (B, K) per-beam positions
-    plan_ctx: Optional[int] = None,  # the table whose column chunks to use
 ):
     """Returns (attn (B, H, K, D) in q.dtype, self_k, self_v).
 
@@ -93,10 +92,10 @@ def beam_attend_append(
     whose outputs are never read (as with the TPU kernels).  Requires
     ``0 <= pos_row < ctx``, a head dim of 64 and at most 32 beams.  A call
     allocates only its output: scratch and ticket counters are kept per
-    device.  ``plan_ctx`` (at least the cache's ctx) plans the column
-    chunks as for a table of that many columns: the ctx ladder's rungs keep
-    the full table's chunks, and with them its sums, since the merge reads
-    only the chunks up to ``pos_row``.  On a CPU tensor:
+    device.  The column chunks (``_split_plan``) do not depend on B, H or
+    ctx, so a row's output is the same bits in any batch, as a slice of
+    its heads, and on every rung of the ctx ladder (whose merge reads only
+    the chunks up to ``pos_row``).  On a CPU tensor:
     ``beam_attend_append_ref``, which honours ``pos_bk``."""
     if not q.is_cuda:
         if q.device.type != "cpu":
@@ -151,13 +150,23 @@ def beam_attend_append(
         raise ValueError(f"beam_attend_append: {k} beams, the kernel takes 1..{_MAX_BEAMS}")
     if not 0 <= layer < n_layer:
         raise ValueError(f"beam_attend_append: layer {layer} outside [0, {n_layer})")
-    if plan_ctx is not None and plan_ctx < ctx:
-        raise ValueError(f"beam_attend_append: plan_ctx {plan_ctx} below the cache's ctx {ctx}")
     if any(t.data_ptr() % 16 for t in (q, k_new, v_new, codes_k, self_v.q if quant else self_v)):
         raise ValueError("beam_attend_append: q, k_new, v_new and the caches must be 16-byte aligned")
 
     row_bytes = d * (1 if quant else q.element_size())
-    chunk, _ = _split_plan(b, h, k, plan_ctx or ctx, row_bytes, _sm_count(q.device))
+    chunk, _ = _split_plan(k, ctx, row_bytes)
+    out = _launch(layer, pos_row, q, k_new, v_new, self_k, self_v, anc, chunk)
+    counter = ("launches_int8" if quant else "launches") + ("_f32" if q.dtype == torch.float32 else "")
+    _build.count(beam_attend_append, counter)
+    return out, self_k, self_v
+
+
+def _launch(layer, pos_row, q, k_new, v_new, self_k, self_v, anc, chunk: int) -> torch.Tensor:
+    """K1/K2 over checked arguments with ``chunk`` columns per block;
+    returns the output.  ``beam_attend_append`` passes its plan's chunk."""
+    quant = isinstance(self_k, QuantKV)
+    b, h, k, d = q.shape
+    ctx = (self_k.q if quant else self_k).shape[4]
     n_chunks = -(-ctx // chunk)
     # Scratch for the chunks' partials: (B*H, n_chunks, K, D) sums, then
     # (B*H, n_chunks, K, 2) max and denominator, addressed by pointer.
@@ -186,9 +195,7 @@ def beam_attend_append(
             self_k.data_ptr(), self_v.data_ptr(), *tail,
         )
     _build.check(rc, "beam_attend_append")
-    counter = ("launches_int8" if quant else "launches") + ("_f32" if f32 else "")
-    _build.count(beam_attend_append, counter)
-    return out, self_k, self_v
+    return out
 
 
 beam_attend_append.launches = 0  # K1, bfloat16
@@ -208,10 +215,8 @@ def beam_attend_append_ref(
     anc: torch.Tensor,  # (B, K, ctx)
     *,
     pos_bk: Optional[torch.Tensor] = None,  # (B, K) per-beam positions
-    plan_ctx: Optional[int] = None,
 ):
     """The plain PyTorch version of K1 and K2 (``beam_attend_append_xla``).
-    ``plan_ctx`` plans the kernel's chunks and means nothing here.
 
     ``pos_bk`` optionally carries per-(row, beam) positions: the sampling
     path freezes finished beams at their own positions.  On an int8 cache

@@ -26,34 +26,32 @@ from faster_whisper_tpu_torch.ops.quant import QuantKV
 
 _MAX_BEAMS = 16  # csrc/cross_attention.cu: K4_MAXK
 _MAX_CHUNK = 128  # csrc/cross_attention.cu: K4_MAX_CHUNK, one column per thread
-_CHUNK_ALIGN = 16
-_BLOCKS_PER_SM = 3
+_CHUNK = 80  # columns per block, chosen by timing K4 on an H100 (PERF.md section 6)
 
 # Per device and use: buffers that a kernel keeps between calls, such as
 # its (B*H,) ticket counters, zero between calls (the last block of each
 # (b, h) sets its counter back to 0; one stream at a time may run a kernel
 # on a device).  A buffer outgrown by a larger call stays allocated, since a
-# captured CUDA graph may still address it.  And per device, the SM count.
-# Two shards of a model-axis group on one card (``device_index=[0, 0]``,
-# ``tensor_parallel=2``) share these buffers and the split plans: that is
-# safe only because one host thread launches both shards' kernels in
-# order on one stream, so that one launch ends before the next reads them.
+# captured CUDA graph may still address it.  Two shards of a model-axis
+# group on one card (``device_index=[0, 0]``, ``tensor_parallel=2``) share
+# these buffers: that is safe only because one host thread launches both
+# shards' kernels in order on one stream, so that one launch ends before
+# the next reads them.
 _buffers: Dict[Tuple[torch.device, str], List[torch.Tensor]] = {}
-_n_sm: Dict[torch.device, int] = {}
 
 
 @functools.lru_cache(maxsize=None)
-def _split_plan(b: int, h: int, t: int, n_sm: int = 132) -> Tuple[int, int]:
-    """(chunk, n_chunks): K4 splits T into n_chunks chunks of ``chunk``
-    columns (the last one ragged, none empty), aiming the grid of
-    n_chunks * b * h blocks at three blocks per SM; a chunk is a multiple of
-    16 columns (rounded up, which may leave fewer blocks) and at most 128.
-    At B=1, H=20, T=1500: 19 chunks of 80, 380 blocks."""
-    if min(b, h, t) < 1:
-        raise ValueError(f"cross_attend: no work in B={b}, H={h}, T={t}")
-    want = -(-_BLOCKS_PER_SM * n_sm // (b * h))  # chunks per (b, h)
-    chunk = -(-t // want)
-    chunk = min(_MAX_CHUNK, -(-chunk // _CHUNK_ALIGN) * _CHUNK_ALIGN)
+def _split_plan(t: int) -> Tuple[int, int]:
+    """(chunk, n_chunks): K4 splits T into n_chunks chunks of ``chunk`` = 80
+    columns (the last one ragged, none empty).  The chunk is the same for
+    every batch, head count and card, so that a larger batch or more heads
+    only add blocks and a row's softmax partials merge in the same order
+    whatever the batch bucket, the heads of a ``tensor_parallel`` shard or
+    the card's SM count.  At T=1500: 19 chunks (380 blocks at B=1, H=20;
+    3040 at B=8)."""
+    if t < 1:
+        raise ValueError(f"cross_attend: no work in T={t}")
+    chunk = min(_CHUNK, _MAX_CHUNK)
     return chunk, -(-t // chunk)
 
 
@@ -68,12 +66,6 @@ def _buffer(device: torch.device, use: str, n: int, dtype: torch.dtype) -> torch
         buf = torch.zeros(max(n, 256), dtype=dtype, device=device)
         bufs.append(buf)
     return buf
-
-
-def _sm_count(device: torch.device) -> int:
-    if device not in _n_sm:
-        _n_sm[device] = torch.cuda.get_device_properties(device).multi_processor_count
-    return _n_sm[device]
 
 
 def cross_attend(layer: int, q: torch.Tensor, cross_k, cross_v) -> torch.Tensor:
@@ -131,7 +123,20 @@ def cross_attend(layer: int, q: torch.Tensor, cross_k, cross_v) -> torch.Tensor:
     if codes.data_ptr() % 16 or (cross_v.q if quant else cross_v).data_ptr() % 16:
         raise ValueError("cross_attend: the caches must be 16-byte aligned (16-byte copies)")
 
-    chunk, n_chunks = _split_plan(b, h, t, _sm_count(q.device))
+    chunk, _ = _split_plan(t)
+    out = _launch(layer, q, cross_k, cross_v, chunk)
+    counter = ("launches_int8" if quant else "launches") + ("_f32" if q.dtype == torch.float32 else "")
+    _build.count(cross_attend, counter)
+    return out
+
+
+def _launch(layer: int, q: torch.Tensor, cross_k, cross_v, chunk: int) -> torch.Tensor:
+    """K4 over checked arguments with ``chunk`` columns per block; returns
+    the output.  ``cross_attend`` passes its plan's chunk."""
+    quant = isinstance(cross_k, QuantKV)
+    b, h, k, d = q.shape
+    t = (cross_k.q if quant else cross_k).shape[3]
+    n_chunks = -(-t // chunk)
     # Scratch for the chunks' partials: (B*H, n_chunks, K, D) sums, then
     # (B*H, n_chunks, K, 2) max and denominator (addressed by pointer: a
     # view per part would cost the host more than the kernel's launch).
@@ -157,8 +162,6 @@ def cross_attend(layer: int, q: torch.Tensor, cross_k, cross_v) -> torch.Tensor:
         fn = lib.fwt_cross_attend_f32 if f32 else lib.fwt_cross_attend_bf16
         rc = _build.launch(q.device, fn, q.data_ptr(), cross_k.data_ptr(), cross_v.data_ptr(), *tail)
     _build.check(rc, "cross_attend")
-    counter = ("launches_int8" if quant else "launches") + ("_f32" if f32 else "")
-    _build.count(cross_attend, counter)
     return out
 
 

@@ -115,7 +115,8 @@ def attend_only(layer: int, pos_row, q, self_k: QuantKV, self_v: QuantKV, anc, *
     under the ancestry ``anc`` (B, K, ctx) int32.  With ``codes`` also q's
     codes and the weights' codes, as ``attend_only_plain`` returns them.
 
-    On a CUDA tensor: the kernel, one block per (b, h), counted in
+    On a CUDA tensor: the kernel, a cluster of CTAs per (b, h) that split
+    its columns (4 of 48 columns at ctx=192), counted in
     ``attend_only.launches``; requires D=64, 1..8 beams and
     0 <= pos_row < ctx.  On a CPU tensor: ``attend_only_plain``."""
     if not q.is_cuda:
@@ -233,12 +234,10 @@ scores_batched.launches = 0
 def scores_perhead(layer: int, q, kq, *, codes=False):
     """P2h: q flat (B, K, H*D) bf16 and kq (L, B, H, K, ctx, D) int8 ->
     (B, K) float32 (see ``scores_perhead_plain``).  On a CUDA tensor: the
-    kernel, one block per (b, h), whose integer column sums meet in a
-    per-device (B, K) int64 sum that the last block of each row scales,
-    counted in ``scores_perhead.launches``; on a CPU tensor the plain
-    version."""
-    from faster_whisper_tpu_torch.ops.cross_attention import _buffer
-
+    kernel, one cluster of 8 CTAs per batch row, which share the row's
+    scale and meet in exact int64 sums in the cluster's shared memory,
+    counted in ``scores_perhead.launches``; it keeps no state between
+    calls.  On a CPU tensor the plain version."""
     if not q.is_cuda:
         _host_only(q, "scores_perhead")
         return scores_perhead_plain(layer, q, kq, codes=codes)
@@ -250,12 +249,9 @@ def scores_perhead(layer: int, q, kq, *, codes=False):
     ])
     out = torch.empty((b, k), dtype=torch.float32, device=q.device)
     q_codes = torch.empty(q.shape, dtype=torch.int8, device=q.device) if codes else None
-    sums = _buffer(q.device, "scores_perhead sums", b * k, torch.int64)
-    tickets = _buffer(q.device, "scores_perhead tickets", b, torch.int32)
     rc = _build.launch(
         q.device, _build.load("probes.cu").fwt_scores_perhead_int8, q.data_ptr(), kq.data_ptr(),
-        out.data_ptr(), _ptr(q_codes), sums.data_ptr(), tickets.data_ptr(), b, h, k, ctx, d,
-        int(layer),
+        out.data_ptr(), _ptr(q_codes), b, h, k, ctx, d, int(layer),
     )
     _build.check(rc, "scores_perhead")
     _build.count(scores_perhead)

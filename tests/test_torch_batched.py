@@ -219,6 +219,29 @@ def test_int8_pipeline_matches_jax(weights, speech, monkeypatch):
     assert_segments_equal(segments, ref_segments)
 
 
+def test_partial_trailing_batch_matches_unpadded(models, speech):
+    """The counterpart of the JAX suite's
+    ``test_transcribe.py::test_partial_trailing_batch_matches_unpadded``:
+    four 24 s clips of ``docker/jfk.flac`` tiled 9 times, at batch 3 (the
+    trailing chunk padded to the full batches' 3 rows) and at batch 2
+    (which divides the chunks evenly), give equal starts, ends and texts,
+    equal to the JAX package's pipeline on the same audio and weights."""
+    jm, pm = models
+    audio = np.tile(speech[: len(speech) // 6], 9)  # ~99 s
+    clips = [{"start": i * 24.0, "end": (i + 1) * 24.0} for i in range(4)]
+    kwargs = dict(language="en", beam_size=1, vad_filter=False, max_new_tokens=16, clip_timestamps=clips)
+
+    def rows(segments):
+        return [(s.start, s.end, s.text) for s in segments]
+
+    pipe = BatchedInferencePipeline(pm)
+    padded = rows(pipe.transcribe(audio, batch_size=3, **kwargs)[0])
+    even = rows(pipe.transcribe(audio, batch_size=2, **kwargs)[0])
+    ref = rows(JaxPipeline(jm).transcribe(audio, batch_size=2, **kwargs)[0])
+    assert padded == even == ref
+    assert len({start for start, _, _ in ref}) >= 4  # every clip gave a segment
+
+
 def test_stale_batch_bucket_recomputed_for_larger_forward(models):
     """A tail bucket left behind by a generator run must not stop a larger
     direct call from taking its pow2 bucket: 12 rows run as 16, not 12."""

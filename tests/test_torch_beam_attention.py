@@ -11,6 +11,8 @@ in another order).  bfloat16 relative 2e-2 of the output scale (one bf16
 rounding of q, of the weights and of the output, each ~0.4%, placed where
 the two frameworks round).  int8 codes and scales: exactly equal."""
 
+import inspect
+
 import numpy as np
 import pytest
 
@@ -273,16 +275,22 @@ def test_split_plan_tiles_the_columns_and_fits_shared_memory(b, h, k, row_bytes)
     chunks tile [0, ctx); a chunk is a multiple of 8 columns, at most 64,
     and its K and V row slots (a row and 16 bytes of padding) fit the
     kernel's 64 KB (8 columns at the least).  The plan takes no write
-    position, so a decode's grid never changes."""
+    position, so a decode's grid never changes, and no ctx for its chunk,
+    so every rung of the ctx ladder splits alike.  It takes no batch, no
+    heads and no SM count either: the chunk of this case's (b, h) is that
+    of every other batch and head count, on every card."""
+    assert list(inspect.signature(_split_plan).parameters) == ["k", "ctx", "row_bytes"]
+    full, _ = _split_plan(k, 448, row_bytes)
     for ctx in range(1, 449):
-        chunk, n = _split_plan(b, h, k, ctx, row_bytes)
+        chunk, n = _split_plan(k, ctx, row_bytes)
         assert 8 <= chunk <= 64 and chunk % 8 == 0, (ctx, chunk)
         assert (n - 1) * chunk < ctx <= n * chunk, (ctx, chunk, n)
         assert chunk == 8 or 2 * k * chunk * (row_bytes + 16) <= 64 * 1024, (ctx, chunk)
-    # At the main path's shape (B=1, H=20, K=5, bf16 or int8 rows) the grid
-    # holds at least two blocks per SM of an H100: 14 chunks of 32.
+        assert chunk == full, (ctx, chunk)
+    # At the main path's shape (K=5, bf16 or int8 rows): 14 chunks of 32,
+    # whatever the batch (280 blocks at B=1, H=20; 2240 at B=8).
     if (b, h, k) == (1, 20, 5) and row_bytes <= 128:
-        assert _split_plan(b, h, k, 448, row_bytes, n_sm=132) == (32, 14)
+        assert _split_plan(k, 448, row_bytes) == (32, 14)
 
 
 def _split_and_merge(layer, pos, q, sk, sv, anc, chunk):
@@ -339,7 +347,43 @@ def test_split_and_merge_arithmetic_matches_plain_version(quant, pos):
     ref, sk, sv = beam_attend_append_ref(
         layer, t["pos_row"], t["q"], t["k_new"], t["v_new"], sk, sv, t["anc"],
     )
-    chunk, n = _split_plan(2, 3, 4, 41, 16 if quant else 64)
-    assert (chunk, n) == (8, 6)
-    ours = _split_and_merge(layer, pos, t["q"], sk, sv, t["anc"], chunk)
-    np.testing.assert_allclose(ours.numpy(), ref.numpy(), atol=F32_TOL, rtol=F32_TOL)
+    chunk, n = _split_plan(4, 41, 16 if quant else 64)
+    assert (chunk, n) == (32, 2)
+    # the plan's chunk, and chunks of 8 with the write position on and
+    # beside their boundaries
+    for width in (chunk, 8):
+        ours = _split_and_merge(layer, pos, t["q"], sk, sv, t["anc"], width)
+        np.testing.assert_allclose(ours.numpy(), ref.numpy(), atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["K1-bf16", "K2-int8"])
+def test_a_rows_chunked_output_is_the_same_bits_alone_in_a_batch_and_as_a_head_slice(quant):
+    """K1/K2's arithmetic (``_split_and_merge``, with the chunk of the
+    kernel's plan for 64-wide bf16 or int8 rows) for one row of a batch of
+    8 with 20 heads: the row alone, the same row inside the batch of 8 and
+    its heads 10-19 as a shard of 10 heads give bit-equal outputs, since
+    the plan's chunks do not move with the batch or the heads."""
+    b, h, k, ctx, d, pos, row = 8, 20, 5, 200, 16, 199, 3
+    arrs = _inputs(B=b, H=h, K=k, CTX=ctx, D=d, L=1, pos=pos, seed=61)
+    t = _torch(arrs, torch.bfloat16)
+    sk, sv = t["self_k"], t["self_v"]
+    if quant:
+        sk, sv = (QuantKV(c.q, c.s.to(torch.bfloat16)) for c in (quantize_kv(sk), quantize_kv(sv)))
+    chunk, n = _split_plan(k, ctx, 64 if quant else 128)
+    assert n > 1
+
+    def part(cache, rows, heads):
+        if quant:
+            return QuantKV(cache.q[:, rows, heads].contiguous(), cache.s[:, rows, heads].contiguous())
+        return cache[:, rows, heads].contiguous()
+
+    def run(rows, heads):
+        q = t["q"][rows, heads].contiguous()
+        anc = t["anc"][rows].contiguous()
+        return _split_and_merge(0, pos, q, part(sk, rows, heads), part(sv, rows, heads), anc, chunk)
+
+    whole = run(slice(None), slice(None))
+    alone = run(slice(row, row + 1), slice(None))
+    shard = run(slice(row, row + 1), slice(10, 20))
+    assert torch.equal(alone[0], whole[row])
+    assert torch.equal(shard[0], whole[row, 10:])

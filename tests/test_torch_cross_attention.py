@@ -12,6 +12,8 @@ kernels scale q before the dot, the plain version the scores after it).
 bfloat16 relative 2e-2 of the output scale (one bf16 rounding of the
 weights and of the output, placed where the two frameworks round)."""
 
+import inspect
+
 import numpy as np
 import pytest
 
@@ -133,17 +135,21 @@ def test_wrapper_takes_the_plain_version_for_cpu_tensors(quant):
 def test_split_plan_covers_every_column_with_no_empty_chunk(b, h):
     """K4's split over T: for every T from 1 to 1501 the chunks tile [0, T)
     exactly, the last one non-empty; a chunk is a multiple of 16 columns,
-    at most 128 (one per thread of the kernel's score pass)."""
+    at most 128 (one per thread of the kernel's score pass).  The plan
+    takes only T: the chunk of this case's (b, h) is that of every other
+    batch and head count, on every card, and the same for every T."""
+    assert list(inspect.signature(_split_plan).parameters) == ["t"]
+    full, _ = _split_plan(1500)
     for t in range(1, 1502):
-        chunk, n = _split_plan(b, h, t)
+        chunk, n = _split_plan(t)
         assert 1 <= chunk <= 128 and chunk % 16 == 0, (t, chunk)
         assert (n - 1) * chunk < t <= n * chunk, (t, chunk, n)
+        assert chunk == full, (t, chunk)
         if t <= chunk:
             assert n == 1
-    # At the main path's shape the grid holds at least two blocks per SM
-    # of an H100.
-    chunk, n = _split_plan(1, 20, 1500, n_sm=132)
-    assert n * 20 >= 2 * 132
+    # At the main path's T: 19 chunks of 80, 380 blocks at B=1, H=20 (more
+    # than two per SM of an H100) and 3040 at B=8.
+    assert _split_plan(1500) == (80, 19)
 
 
 def _split_and_merge(layer, q, cross_k, cross_v):
@@ -155,7 +161,7 @@ def _split_and_merge(layer, q, cross_k, cross_v):
     b, h, _, d = q.shape
     codes_k, codes_v = (cross_k.q, cross_v.q) if quant else (cross_k, cross_v)
     t = codes_k.shape[3]
-    chunk, n = _split_plan(b, h, t)
+    chunk, n = _split_plan(t)
     ms, ls, os_ = [], [], []
     for c in range(n):
         cols = slice(c * chunk, min(t, (c + 1) * chunk))
@@ -191,3 +197,36 @@ def test_split_and_merge_arithmetic_matches_plain_version(quant, t):
     ref = cross_attend_ref(1, tq, tk, tv)
     ours = _split_and_merge(1, tq, tk, tv)
     np.testing.assert_allclose(ours.numpy(), ref.numpy(), atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["raw", "int8"])
+def test_a_rows_chunked_output_is_the_same_bits_alone_in_a_batch_and_as_a_head_slice(quant):
+    """K4's arithmetic (``_split_and_merge``, with the kernel's plan) for
+    one row of a batch of 8 with 20 heads at T=1500: the row alone, the
+    same row inside the batch of 8 and its heads 10-19 as a shard of 10
+    heads give bit-equal outputs, since the plan's chunks do not move with
+    the batch or the heads."""
+    b, h, k, t, d, row = 8, 20, 5, 1500, 16, 5
+    rng = np.random.default_rng(8)
+    q = torch.from_numpy(rng.standard_normal((b, h, k, d)).astype(np.float32)).to(torch.bfloat16)
+    ck, cv = (rng.standard_normal((1, b, h, t, d)).astype(np.float32) for _ in range(2))
+    if quant:
+        (kq, ks), (vq, vs) = _quant(ck, jnp.bfloat16), _quant(cv, jnp.bfloat16)
+        tk = QuantKV(torch.from_numpy(kq), torch.from_numpy(ks).to(torch.bfloat16))
+        tv = QuantKV(torch.from_numpy(vq), torch.from_numpy(vs).to(torch.bfloat16))
+    else:
+        tk, tv = (torch.from_numpy(c).to(torch.bfloat16) for c in (ck, cv))
+
+    def part(cache, rows, heads):
+        if quant:
+            return QuantKV(cache.q[:, rows, heads].contiguous(), cache.s[:, rows, heads].contiguous())
+        return cache[:, rows, heads].contiguous()
+
+    def run(rows, heads):
+        return _split_and_merge(0, q[rows, heads].contiguous(), part(tk, rows, heads), part(tv, rows, heads))
+
+    whole = run(slice(None), slice(None))
+    alone = run(slice(row, row + 1), slice(None))
+    shard = run(slice(row, row + 1), slice(10, 20))
+    assert torch.equal(alone[0], whole[row])
+    assert torch.equal(shard[0], whole[row, 10:])

@@ -3,8 +3,10 @@ nvcc, then hold every form of K1, K2, K3 and K4 (bfloat16 and float32
 activations, raw and int8 caches) and the probe kernels P1, P2b and P2h
 against their plain versions at the main path's shapes and at ragged ones (``chip_smoke.py`` phases 2 and 3:
 K1/K2 with the write position on and beside their column chunks'
-boundaries, and in a CUDA graph), and a small model at every compute type
-against the CPU.  Skips without
+boundaries, and in a CUDA graph), a row of K1/K2/K4 alone against its
+batch and its head slice (bit-equal), a small model at every compute
+type against the CPU, and at int8 the same tokens at batch 8 and 2 and
+under ``tensor_parallel=2``.  Skips without
 a card; on the card run
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -184,6 +186,63 @@ def test_probe_kernels_match_their_plain_versions(card):
     terms' magnitudes; P2h twice in a row (its sums and tickets reset)."""
     errs, _moved = chip_smoke.check_probes()
     assert set(errs) == {"P1", "P2b", "P2h"}
+
+
+def test_probe_kernels_leave_no_state_between_calls(card):
+    """P1 (clusters of 2 CTAs at ctx=64, of 4 at 192) and P2h (clusters
+    of 4 CTAs at H=4, of 10 at H=20) twice in a row on the same inputs:
+    the second call equals the first, and both equal a call on a copy."""
+    from faster_whisper_tpu_torch.ops import probes
+
+    for shape in ((2, 4, 5, 64, 64, 2), (8, 20, 5, 192, 64, 1)):
+        x = probes.probe_inputs(*shape, device="cuda", pos=shape[3] // 2)
+        args = (shape[5] - 1, x["pos"], x["q"], x["self_k"], x["self_v"], x["anc"])
+        first, second = probes.attend_only(*args), probes.attend_only(*args)
+        assert torch.equal(first, second)
+        kq = x["self_k"].q
+        first, second = probes.scores_perhead(0, x["q_flat"], kq), probes.scores_perhead(0, x["q_flat"], kq)
+        again = probes.scores_perhead(0, x["q_flat"].clone(), kq.clone())
+        assert torch.equal(first, second) and torch.equal(first, again)
+
+
+def test_a_rows_kernel_outputs_are_the_same_bits_alone_in_a_batch_and_as_a_head_slice(card):
+    """K1/K2 and K4, every form (``chip_smoke.py`` phase 3): one row alone,
+    inside its batch of 8 and as heads 10-19 of its 20, bit-equal."""
+    assert chip_smoke.check_batch_invariance() == 2 * (len(chip_smoke.K1_FORMS) + len(chip_smoke.K4_FORMS))
+
+
+def test_int8_tokens_of_a_chunk_are_the_same_at_batch_8_and_at_batch_2(card):
+    """A small model at int8 (bf16 activations): the beam decode of two
+    chunks' encoder states inside a batch of 8 and as a batch of 2 gives
+    equal tokens and scores, since no kernel's plan moves with the
+    batch."""
+    from faster_whisper_tpu_torch.tokenizer import Tokenizer
+    from faster_whisper_tpu_torch.transcribe import WhisperModel
+
+    cfg, cpu, tok = chip_smoke.small_model_parts()
+    model = WhisperModel.from_parts(cpu, cfg, tok, compute_type="int8", device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(16)
+    states = model.model.encode(torch.randn((8, cfg.n_mels, 3000), generator=g, device="cuda"))
+    tokenizer = Tokenizer(model.hf_tokenizer, model.model.is_multilingual, task="transcribe", language="en")
+    prompt = model.get_prompt(tokenizer, [], without_timestamps=True)
+    kwargs = dict(beam_size=5, max_length=len(prompt) + 64, suppress_tokens=chip_smoke.SMALL_SPECIALS)
+    at8 = model.model.generate(states, [prompt] * 8, **kwargs)[6:]
+    at2 = model.model.generate(states[6:].contiguous(), [prompt] * 2, **kwargs)
+    assert [(r.sequences_ids, r.scores) for r in at8] == [(r.sequences_ids, r.scores) for r in at2]
+    assert all(len(r.sequences_ids[0]) > 0 for r in at2)
+
+
+def test_int8_tensor_parallel_on_one_card_gives_one_devices_tokens_and_times(card):
+    """``tensor_parallel=2`` on ``[0, 0]`` at int8 against one device: every
+    product is exact, every all-reduce an integer sum and K1/K2/K4 split a
+    row alike at 1 head per shard as at 2, so the tokens and times are
+    bit-equal."""
+    cfg, cpu, tok = chip_smoke.small_model_parts()
+    audio = chip_smoke.synth_audio(40.0, seed=4)
+    _, want = _tp_segments(cfg, cpu, tok, "int8_bfloat16", 0, 1, audio)
+    model, got = _tp_segments(cfg, cpu, tok, "int8_bfloat16", [0, 0], 2, audio)
+    assert model.mesh.shape == {"data": 1, "model": 2}
+    assert [r[:4] for r in got] == [r[:4] for r in want] and len(got) > 0
 
 
 def test_probe_wrappers_count_launches_and_reject_what_the_kernels_do_not_take(card):
