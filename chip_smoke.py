@@ -98,8 +98,9 @@ Phases, each printing its own line with its seconds:
    request j, ``WhisperModel(directory)`` with its defaults (the card,
    bf16) on 20 s at beam 5, whose loaded weights must equal the
    float16-rounded weights bit for bit and whose segments must equal
-   ``from_parts`` on them; request k, ``WhisperModel(directory,
-   compute_type="int8")`` through the pipeline as in request i; each with
+   ``from_parts`` on them, both sampling from ``rng_seed=0``; request
+   k, ``WhisperModel(directory, compute_type="int8")`` through the
+   pipeline as in request i; each with
    the launch counts of phase 7.  A small model written as an HF
    safetensors directory, on the card against the CPU (equal tokens).
    ``docker/jfk.flac`` through the native FLAC decoder, bit for bit the
@@ -196,7 +197,17 @@ Phases, each printing its own line with its seconds:
     differ from one device's (printed; at bf16 the row-parallel partials
     round once more; at int8, request i, none may differ); with two cards
     h on ``[0, 1]`` (NCCL) must equal ``[0, 0]``'s, and with one a line
-    says that NCCL was not run.
+    says that NCCL was not run;
+15. the sequential log-mel and the upload knobs: the whole-file log-mel
+    on the card (``FeatureExtractor(return_device=True)``, 128 mels) and
+    the host numpy path at 1 s, 479990, 480000 and 480150 samples, 45 s,
+    150 s (request p's audio) and 600 s, each within LOG_MEL_TOL of a
+    float64 DFT and of the other, each timed on both; requests a, p and q through ``WhisperModel.transcribe``, whose
+    features reach the seek loop as a tensor on the card, with phase 7's
+    launch counts; at int8 with the engine's ``rng_seed`` fixed, request
+    i on its audio rounded to the int16 grid under ``FWT_SHARED_UPLOAD=0``
+    and ``FWT_I16_TRANSFER=0``, each against the knob's default: 0
+    segments may differ (on the raw audio only printed).
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as the last line
@@ -1991,6 +2002,12 @@ def run_checkpoints(speech, card, root):
     if diff or loaded:
         raise AssertionError(f"loaded weights differ from the float16-rounded ones: {diff}, {list(loaded)}")
     clip = synth_audio(20.0, seed=2)
+    # j's rungs all fail on random weights and a sampled one is kept: both
+    # models draw from one fixed seed, so that only their weights differ
+    # (with fresh entropy one model's output changes from run to run:
+    # tools/sampling_repeats.py)
+    model.model.rng_seed = 0
+
     def request_j():
         segments, info = model.transcribe(clip, beam_size=5)
         return list(segments), info
@@ -2006,6 +2023,7 @@ def run_checkpoints(speech, card, root):
     check_counts(counts["j"], per_step=("k1", "k4_bf16"), per_encode="k3", cfg=cfg)
     del model
     ref = WhisperModel.from_parts(rounded, cfg_read, BPETokenizer.from_str(tok_text))
+    ref.model.rng_seed = 0
     want = _segment_keys(ref.transcribe(clip, beam_size=5)[0])
     del ref, rounded
     print(f"request j against from_parts on the float16-rounded weights: equal segments and "
@@ -3782,6 +3800,200 @@ def print_times(label, t, card):
           f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}){fma} on {card}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the sequential path's log-mel on the card and the upload knobs
+# ---------------------------------------------------------------------------
+
+# Whole-file log-mel, the card's and the host's each against a float64 DFT
+# of the same float32 frames and bases, and against each other: the CPU
+# tests' tolerance against the JAX package (tests/test_torch_log_mel.py).
+# A bin that a louder one leaks into is a sum of 400 terms that nearly
+# cancel; the host sums them in float32 (~3e-5 to 7e-5 from the float64
+# sum), the card in float64 (ops/mel.py::_log_spectrum).
+LOG_MEL_TOL = 1e-4
+P_SAMPLES = 150 * 16000  # request p's audio, synth_audio(150.0, seed=1)
+# Phase 15's log-mel lengths in samples: 1 s, both sides of the end of the
+# first 1500-frame bucket, 45 s, request p's 150 s and 600 s.
+LOG_MEL_LENGTHS = (16000, 479990, 480000, 480150, 45 * 16000, P_SAMPLES, 600 * 16000)
+
+
+def log_mel_float64(fe, audio):
+    """The whole-file log-mel of ``audio`` with every sum in float64, on
+    the card: the JAX package's buffer (zeros to k * 1500 + 1 frames, a
+    reflect pad), the extractor's float32 DFT bases and filters widened,
+    ``log10(clip(., 1e-10))``, the global max, the clamp and the scale."""
+    n = len(audio)
+    n_valid = (n + 160) // 160
+    n_bucketed = max(1, -(-max(n_valid - 1, 1) // 1500)) * 1500 + 1
+    mel_filters, cos_b, sin_b = (torch.from_numpy(a).to("cuda", torch.float64)
+                                 for a in (fe.mel_filters, fe._cos_b, fe._sin_b))
+    x = torch.nn.functional.pad(torch.from_numpy(audio).to("cuda", torch.float64), (0, n_bucketed * 160 - n))
+    frames = torch.nn.functional.pad(x[None], (200, 360), mode="reflect")[0].unfold(0, 400, 160)[:n_valid]
+    mel = ((frames @ cos_b) ** 2 + (frames @ sin_b) ** 2) @ mel_filters.T
+    ref = torch.log10(torch.clamp(mel, min=1e-10))
+    return ((torch.maximum(ref, ref.max() - 8.0) + 4.0) / 4.0).T.cpu().numpy()
+
+
+def _with_env(name, value, fn):
+    """``fn()`` with the variable ``name`` set to ``value`` (None: as it
+    is), then restored."""
+    if value is None:
+        return fn()
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        return fn()
+    finally:
+        if old is None:
+            os.environ.pop(name)
+        else:
+            os.environ[name] = old
+
+
+def check_device_log_mel(card, lengths=LOG_MEL_LENGTHS):
+    """Phase 15 (i): ``FeatureExtractor(feature_size=128)(audio,
+    return_device=True)``, whose device is the card by default, against
+    the host numpy path at each length: a float32 tensor on the card of
+    the host's shape; the card's and the host's each within LOG_MEL_TOL of
+    ``log_mel_float64`` and of each other.  Each is timed: the host's wall
+    seconds, and the card's synchronized, the second of two calls (warm);
+    at 150 s that is request p's log-mel.  Returns {length: the largest of
+    the three differences}."""
+    from faster_whisper_tpu_torch.feature_extractor import FeatureExtractor
+
+    fe = FeatureExtractor(feature_size=128)
+    errs = {}
+    for n in lengths:
+        audio = synth_audio(150.0, seed=1) if n == P_SAMPLES else synth_audio(n / 16000 + 1, seed=5)[:n]
+        t0 = time.perf_counter()
+        host = fe(audio)
+        host_s = time.perf_counter() - t0
+        fe(audio, return_device=True)
+        dev, dev_s = _synced_seconds(lambda: fe(audio, return_device=True))
+        if not (dev.is_cuda and dev.dtype == torch.float32 and tuple(dev.shape) == host.shape):
+            raise AssertionError(f"device log-mel of {n} samples: {dev.dtype} {tuple(dev.shape)} on "
+                                 f"{dev.device}, host {host.shape}")
+        dev = dev.cpu().numpy()
+        ref = log_mel_float64(fe, audio)
+        card_err, host_err = float(np.abs(dev - ref).max()), float(np.abs(host - ref).max())
+        diff = float(np.abs(dev - host).max())
+        errs[n] = max(card_err, host_err, diff)
+        what = "request p's log-mel, " if n == P_SAMPLES else ""
+        print(f"whole-file log-mel, {what}{n} samples ({n / 16000:.2f} s), 128 mels, {host.shape[1]} "
+              f"frames: max|card - float64| {card_err:.3e}, max|host - float64| {host_err:.3e}, "
+              f"max|card - host| {diff:.3e} (tolerance {LOG_MEL_TOL:.0e}); host {host_s:.4f} s wall, "
+              f"card {dev_s:.4f} s (synchronized, warm) on {card}")
+        if not errs[n] <= LOG_MEL_TOL:
+            raise AssertionError(f"the log-mel of {n} samples: card {card_err:.3e} and host {host_err:.3e} "
+                                 f"from the float64 DFT, {diff:.3e} from each other")
+    return errs
+
+
+def run_device_feature_requests(later, card):
+    """Phase 15 (ii): requests a (45 s, language detection, beam 5, the
+    ladder; bf16), p (150 s, en, without timestamps, beam 5, 128 new
+    tokens, temperature 0; bf16) and q (p at int8) through
+    ``WhisperModel.transcribe``, whose whole-file features reach
+    ``generate_segments`` as a float32 tensor on the card: segments, decode
+    steps and wall seconds, with phase 7's launch counts.  Returns the
+    counts of the runs."""
+    from faster_whisper_tpu_torch.transcribe import WhisperModel
+
+    cfg, tok = later["cfg"], later["tok"]
+    long_clip = synth_audio(150.0, seed=1)
+    p_kwargs = dict(language="en", without_timestamps=True, beam_size=5, max_new_tokens=128,
+                    temperature=0.0)
+    runs = {}
+    for compute_type, per_step, requests in (
+        ("bfloat16", ("k1", "k4_bf16"), [("a", synth_audio(45.0, seed=1), dict(language=None, beam_size=5)),
+                                         ("p", long_clip, p_kwargs)]),
+        ("int8", ("k2", "k4_int8"), [("q", long_clip, p_kwargs)]),
+    ):
+        model = WhisperModel.from_parts(later["params"], cfg, tok, compute_type=compute_type)
+        seen = []
+        generate_segments = model.generate_segments
+
+        def spy(features, *args, **kwargs):
+            seen.append(features)
+            return generate_segments(features, *args, **kwargs)
+
+        model.generate_segments = spy
+        try:
+            for name, audio, kwargs in requests:
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                segments, info = model.transcribe(audio, **kwargs)
+                segments = list(segments)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                counts = read_counts()
+                check_segments(segments, info, len(audio) / 16000, cfg.n_vocab)
+                check_counts(counts, per_step=per_step, per_encode="k3", cfg=cfg)
+                runs[f"{name} device features"] = counts
+                f = seen[-1]
+                frames = (len(audio) + 160) // 160
+                if not (isinstance(f, torch.Tensor) and f.is_cuda and tuple(f.shape) == (cfg.n_mels, frames)):
+                    raise AssertionError(f"request {name}'s features reached generate_segments as "
+                                         f"{type(f).__name__} {tuple(f.shape)}, not a tensor on the card")
+                print(f"request {name} ({compute_type}, {len(audio) / 16000:.0f} s, {kwargs}) on device "
+                      f"features ({tuple(f.shape)} float32 on {f.device}): {len(segments)} segments, "
+                      f"{sum(len(s.tokens) for s in segments)} tokens, {counts['steps']} decode steps, "
+                      f"{counts['encodes']} encodes, {seconds:.3f} s wall, "
+                      f"{seconds * 1e3 / max(counts['steps'], 1):.2f} ms per step (wall) on {card}")
+        finally:
+            del model.generate_segments
+        del model
+        torch.cuda.empty_cache()
+    return runs
+
+
+def run_knobs(later, speech, card):
+    """Phase 15 (iii), at int8 with the engine's ``rng_seed`` fixed (int8
+    is batch-invariant on the card, phase 7b): request i (the pipeline
+    over ``speech``) under ``FWT_SHARED_UPLOAD=0`` and
+    ``FWT_I16_TRANSFER=0`` on ``speech`` rounded to the int16 grid, each
+    against the same run with the knob at its default: 0 segments may
+    differ.  The two knobs on the raw resampled audio, which is off the
+    grid, only print how many segments differ.  Returns the counts of the
+    runs."""
+    from faster_whisper_tpu_torch.transcribe import WhisperModel
+
+    cfg = later["cfg"]
+    model = WhisperModel.from_parts(later["params"], cfg, later["tok"], compute_type="int8")
+    model.model.rng_seed = 0
+    grid = (np.clip(np.round(speech * 32768.0), -32768, 32767).astype(np.int16) / 32768.0).astype(np.float32)
+    runs = {}
+
+    def differ(a, b):
+        return sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+
+    def batched(label, audio, knob=None, value=None):
+        counts, segments, _ = _with_env(
+            knob, value, lambda: run_batched(model, f"i ({label}): int8", audio, cfg)
+        )
+        check_counts(counts, per_step=("k2", "k4_int8"), per_encode="k3", cfg=cfg)
+        runs[f"i {label}"] = counts
+        return [(s.start, s.end, s.tokens) for s in segments]
+
+    failures = []
+    base, grid_base = batched("defaults", speech), batched("int16 grid", grid)
+    for knob in ("FWT_SHARED_UPLOAD", "FWT_I16_TRANSFER"):
+        n = differ(batched(f"int16 grid, {knob}=0", grid, knob, "0"), grid_base)
+        print(f"request i on int16-grid audio under {knob}=0: {n} of {len(grid_base)} segments differ "
+              f"from the knob's default on {card}")
+        if n:
+            failures.append(knob)
+        n = differ(batched(f"{knob}=0", speech, knob, "0"), base)
+        print(f"request i on the raw resampled audio (off the int16 grid) under {knob}=0: {n} of "
+              f"{len(base)} segments differ from the knob's default (printed only) on {card}")
+    del model
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"segments on int16-grid audio moved under {failures}")
+    return runs
+
+
 def main():
     t_all = time.perf_counter()
 
@@ -3922,8 +4134,13 @@ def main():
         errs[label] = max(errs[label], err)
     check_small_pipeline_against_cpu(jfk, tensor_parallel=2)
     late.update(run_tensor_parallel(later, speech, card))
-    del later
     phase("tensor parallel", t0)
+    t0 = time.perf_counter()
+    check_device_log_mel(card)
+    late.update(run_device_feature_requests(later, card))
+    late.update(run_knobs(later, speech, card))
+    del later
+    phase("sequential log-mel and upload knobs", t0)
 
     def late_sum(key):
         return sum(c[key] for c in late.values())
@@ -3943,7 +4160,7 @@ def main():
     errs["K4 int8"] = max(errs["K4 int8"], errs["K4 int8 qmax7"])
     errs["K4 int8 f32"] = max(errs["K4 int8 f32"], errs["K4 int8 qmax7 f32"])
     # each kernel's launches over every path's counted run: phases 7 and
-    # 9-11 and phases 12-13's (late_sum)
+    # 9-11 and phases 12-15's (late_sum)
     kernels = [
         entry("beam_attend_append bf16 (K1)", "K1", "beam_attention.cu", K1_REPLACES,
               bf16["k1"] + req_h["k1"] + req_j["k1"] + req_l["k1"] + late_sum("k1")),

@@ -75,18 +75,27 @@ def decode_audio(
     )
 
 
-def pad_or_trim(array: np.ndarray, length: int = 3000, *, axis: int = -1) -> np.ndarray:
+def pad_or_trim(array, length: int = 3000, *, axis: int = -1):
     """Pad or trim mel features to ``length`` frames (3000 = 30 s), as the
-    encoder expects."""
+    encoder expects.  A numpy array is padded on the host, a tensor on its
+    device."""
     if array.shape[axis] > length:
         sl = [slice(None)] * array.ndim
         sl[axis] = slice(0, length)
         array = array[tuple(sl)]
 
     if array.shape[axis] < length:
-        pad_widths = [(0, 0)] * array.ndim
-        pad_widths[axis] = (0, length - array.shape[axis])
-        array = np.pad(array, pad_widths)
+        if isinstance(array, np.ndarray):
+            pad_widths = [(0, 0)] * array.ndim
+            pad_widths[axis] = (0, length - array.shape[axis])
+            array = np.pad(array, pad_widths)
+        else:
+            import torch.nn.functional as F
+
+            # F.pad's widths run from the last axis back
+            pad = [0, 0] * (array.ndim - axis % array.ndim)
+            pad[-1] = length - array.shape[axis]
+            array = F.pad(array, pad)
 
     return array
 

@@ -1,4 +1,5 @@
-"""Whisper log-mel feature extraction on the host, in numpy.
+"""Whisper log-mel feature extraction, on the host in numpy or on the
+device.
 
 The port's own copy of ``faster_whisper_tpu/feature_extractor.py`` and the
 log-mel part of ``faster_whisper_tpu/ops/mel.py``, with the same numerics
@@ -8,12 +9,17 @@ matrix products with the window folded into the basis, Slaney mel
 filters, ``log10(clip(mel, 1e-10))`` clamped at the global max minus 8 over
 the valid frames, then ``(x + 4) / 4``.  The waveform is zero-padded to the
 same 1500-frame buckets as the JAX package, so the frames at the ragged
-end read the same samples.  ``chunk_features``, the batched pipeline's
-per-chunk features, runs on the device (``ops/mel.py::chunked_log_mel``).
+end read the same samples.  ``__call__(..., return_device=True)`` computes
+the same on the extractor's ``device`` (``ops/mel.py::
+log_mel_spectrogram``), and ``chunk_features``, the batched pipeline's
+per-chunk features, on its audio's device (``ops/mel.py::
+chunked_log_mel``).
 """
 
 import numpy as np
 import torch
+
+from faster_whisper_tpu_torch.utils import resolve_device
 
 _BUCKET_FRAMES = 1500
 
@@ -57,6 +63,9 @@ class FeatureExtractor:
         ).astype(np.float32)
         self._cos_b, self._sin_b = dft_basis(n_fft, hann_window(n_fft))
         self._device_constants = {}
+        # where ``return_device=True`` computes: "auto" is the card (and
+        # raises without one); ``WhisperModel`` sets its own device here
+        self.device = "auto"
 
     @staticmethod
     def get_mel_filters(sr, n_fft, n_mels=128):
@@ -91,14 +100,38 @@ class FeatureExtractor:
 
         return weights
 
-    def __call__(self, waveform: np.ndarray, padding=160, chunk_length=None):
+    def _constants(self, device):
+        """The filterbank and DFT bases on ``device``, staged once per
+        device."""
+        key = str(device)
+        if key not in self._device_constants:
+            self._device_constants[key] = tuple(
+                torch.as_tensor(a, device=device)
+                for a in (self.mel_filters, self._cos_b, self._sin_b)
+            )
+        return self._device_constants[key]
+
+    def __call__(self, waveform, padding=160, chunk_length=None, return_device=False):
         """Normalized log-mel spectrogram of a 1-D waveform: float32
         (n_mels, n_frames), n_frames = (len(waveform) + padding) // hop.
-        ``chunk_length`` overrides the window length for this and later
-        calls, as the reference's extractor does."""
+        A numpy array computed on the host, or with ``return_device`` a
+        tensor on the extractor's ``device`` (the sequential path keeps
+        the whole file's features there).  ``chunk_length`` overrides the
+        window length for this and later calls, as the reference's
+        extractor does."""
         if chunk_length is not None:
             self.n_samples = chunk_length * self.sampling_rate
             self.nb_max_frames = self.n_samples // self.hop_length
+
+        if return_device:
+            from faster_whisper_tpu_torch.ops.mel import log_mel_spectrogram
+
+            mel_filters, cos_b, sin_b = self._constants(resolve_device(self.device))
+            return log_mel_spectrogram(
+                waveform, mel_filters, cos_b, sin_b,
+                n_fft=self.n_fft, hop_length=self.hop_length, padding=padding,
+                bucket_frames=_BUCKET_FRAMES,
+            )
 
         waveform = np.asarray(waveform, dtype=np.float32)
         hop, n_fft = self.hop_length, self.n_fft
@@ -112,7 +145,10 @@ class FeatureExtractor:
 
         half = n_fft // 2
         x = np.pad(buf, (half, half + hop), mode="reflect")
-        frames = np.lib.stride_tricks.sliding_window_view(x, n_fft)[::hop][:n_valid]
+        # contiguous: numpy's matmul leaves BLAS for the strided view
+        frames = np.ascontiguousarray(
+            np.lib.stride_tricks.sliding_window_view(x, n_fft)[::hop][:n_valid]
+        )
 
         re = frames @ self._cos_b
         im = frames @ self._sin_b
@@ -134,13 +170,7 @@ class FeatureExtractor:
         nb_max_frames) float32 tensor."""
         from faster_whisper_tpu_torch.ops.mel import chunked_log_mel
 
-        key = str(audio.device)
-        if key not in self._device_constants:
-            self._device_constants[key] = tuple(
-                torch.as_tensor(a, device=audio.device)
-                for a in (self.mel_filters, self._cos_b, self._sin_b)
-            )
-        mel_filters, cos_b, sin_b = self._device_constants[key]
+        mel_filters, cos_b, sin_b = self._constants(audio.device)
         return chunked_log_mel(
             audio, starts, lengths, mel_filters, cos_b, sin_b,
             n_fft=self.n_fft, hop_length=self.hop_length, n_frames_win=self.nb_max_frames,

@@ -22,7 +22,8 @@ them by up to 0.4 over the recurrence (as bf16-rounded products do on the
 TPU), so the forward runs in float32 with TF32 off for its own calls
 (``utils.exact_float32``).  The audio goes through the int16 grid first,
 as the JAX package's upload does, so the probabilities are the same
-whether the samples arrive from the host or from the shared device copy.
+whether the samples arrive from the host or from the shared device copy;
+under ``FWT_I16_TRANSFER=0`` neither path rounds them.
 """
 
 import os
@@ -110,8 +111,10 @@ class SileroVAD(nn.Module):
         x = torch.as_tensor(audio, dtype=torch.float32, device=self.device)
         if x.dim() != 1 or x.shape[0] % _WINDOW:
             raise ValueError(f"audio must be 1-D with a multiple of {_WINDOW} samples")
-        # the int16 grid of the shared upload (ops/mel.py::upload_audio)
-        x = torch.clamp(torch.round(x * 32768.0), -32768, 32767) * (1.0 / 32768.0)
+        # the int16 grid of the shared upload (ops/mel.py::upload_audio);
+        # FWT_I16_TRANSFER=0 keeps the float32 samples
+        if os.environ.get("FWT_I16_TRANSFER", "1") != "0":
+            x = torch.clamp(torch.round(x * 32768.0), -32768, 32767) * (1.0 / 32768.0)
         windows = x.view(-1, _WINDOW)
         context = torch.cat([windows.new_zeros(1, _CONTEXT), windows[:-1, -_CONTEXT:]])
         with torch.no_grad(), exact_float32():
@@ -146,14 +149,18 @@ class SileroVAD(nn.Module):
 
 def _vad_slice_step(model: SileroVAD, q_slice: torch.Tensor, tail: torch.Tensor, state):
     """One slice of the pipelined upload's VAD forward, on the model's
-    device: int16 samples (a multiple of 512), the last 64 samples of the
-    previous slice (zeros before the first) and the LSTM state carried
-    from it (None before the first).  Returns (probabilities, the new
-    tail, the new state, the slice's float32 samples): the samples are
+    device: int16 samples (a multiple of 512; float32 ones under
+    ``FWT_I16_TRANSFER=0``), the last 64 samples of the previous slice
+    (zeros before the first) and the LSTM state carried from it (None
+    before the first).  Returns (probabilities, the new tail, the new
+    state, the slice's float32 samples): the samples are
     ``ops/mel.py::upload_audio``'s own values for the slice (``q / 32768``
-    in float32).  The caller holds ``torch.no_grad`` and
-    ``utils.exact_float32``."""
-    audio = q_slice.to(torch.float32) * (1.0 / 32768.0)
+    in float32, or the float32 samples as they came).  The caller holds
+    ``torch.no_grad`` and ``utils.exact_float32``."""
+    if q_slice.dtype == torch.int16:
+        audio = q_slice.to(torch.float32) * (1.0 / 32768.0)
+    else:
+        audio = q_slice.to(torch.float32)
     windows = audio.view(-1, _WINDOW)
     context = torch.cat([tail[None], windows[:-1, -_CONTEXT:]])
     probs, state = model._forward_windows(torch.cat([context, windows], dim=1), state)

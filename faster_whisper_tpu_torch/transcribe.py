@@ -63,6 +63,7 @@ from warnings import warn
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from faster_whisper_tpu_torch.audio import decode_audio, pad_or_trim
 from faster_whisper_tpu_torch.feature_extractor import FeatureExtractor
@@ -489,6 +490,7 @@ class WhisperModel:
         self.feat_kwargs = dict(feature_extractor_kwargs or {})
         self.feat_kwargs.setdefault("feature_size", config.n_mels)
         self.feature_extractor = FeatureExtractor(**self.feat_kwargs)
+        self.feature_extractor.device = dev  # the whole-file log-mel's device
         self.input_stride = 2
         self.frames_per_second = (
             self.feature_extractor.sampling_rate // self.feature_extractor.hop_length
@@ -625,7 +627,7 @@ class WhisperModel:
         else:
             speech_chunks = None
 
-        features = self.feature_extractor(audio, chunk_length=chunk_length)
+        features = self.feature_extractor(audio, chunk_length=chunk_length, return_device=True)
 
         all_language_probs = None
         if language is None:
@@ -785,7 +787,7 @@ class WhisperModel:
 
     def generate_segments(
         self,
-        features: np.ndarray,
+        features: Union[np.ndarray, torch.Tensor],
         tokenizer: Tokenizer,
         options: TranscriptionOptions,
         log_progress,
@@ -836,10 +838,9 @@ class WhisperModel:
             else:
                 all_tokens.extend(options.initial_prompt)
 
-        # Features go to the device once; every window is a slice there.
-        features_padded = torch.as_tensor(
-            np.pad(features, ((0, 0), (0, nb_max_frames))), device=self.device
-        )
+        # Features are padded on the device (host ones go there once);
+        # every window is a slice there.
+        features_padded = F.pad(torch.as_tensor(features, device=self.device), (0, nb_max_frames))
         last_speech_timestamp = 0.0
 
         speculate = (
@@ -1773,18 +1774,20 @@ class BatchedInferencePipeline:
         # the speech concat that the features are computed from.  Opt-in
         # (FWT_PIPELINED_VAD=1): the transfer in slices on a copy stream,
         # the VAD forward on each slice as it lands (vad.upload_with_vad).
-        vad_probs = None
-        if (
-            not clip_timestamps
-            and vad_filter
-            and len(audio)
-            and os.environ.get("FWT_PIPELINED_VAD", "0") == "1"
-        ):
-            with phase_timer("pcm upload + vad dispatch (pipelined)"):
-                audio_dev, vad_probs = upload_with_vad(audio, device=model.device)
-        else:
-            with phase_timer("pcm upload"):
-                audio_dev = upload_audio(audio, model.device)
+        # FWT_SHARED_UPLOAD=0: the VAD reads the host audio and the
+        # features a float32 speech concat uploaded on its own.
+        audio_dev = vad_probs = None
+        if len(audio) and os.environ.get("FWT_SHARED_UPLOAD", "1") != "0":
+            if (
+                not clip_timestamps
+                and vad_filter
+                and os.environ.get("FWT_PIPELINED_VAD", "0") == "1"
+            ):
+                with phase_timer("pcm upload + vad dispatch (pipelined)"):
+                    audio_dev, vad_probs = upload_with_vad(audio, device=model.device)
+            else:
+                with phase_timer("pcm upload"):
+                    audio_dev = upload_audio(audio, model.device)
 
         if not clip_timestamps:
             if vad_filter:
@@ -1801,7 +1804,10 @@ class BatchedInferencePipeline:
                     )
                 with phase_timer("vad (compile+forward+state machine)"):
                     if vad_probs is None:
-                        clip_timestamps = get_speech_timestamps(audio_dev, vad_parameters)
+                        clip_timestamps = get_speech_timestamps(
+                            audio if audio_dev is None else audio_dev, vad_parameters,
+                            device=model.device,
+                        )
                     else:
                         clip_timestamps = speech_timestamps_from_probs(
                             vad_probs, len(audio), vad_parameters, sampling_rate
@@ -1857,12 +1863,17 @@ class BatchedInferencePipeline:
         # there (the chunks are consecutive in it).
         chunk_lengths = [len(c) for c in audio_chunks]
         if duration_after_vad:
-            n_total = len(audio)  # numpy slicing clamps; match it
-            with phase_timer("assemble speech concat"):
-                base_audio = assemble_segments(
-                    audio_dev,
-                    [(min(c["start"], n_total), min(c["end"], n_total)) for c in clip_timestamps],
-                )
+            if audio_dev is not None:
+                n_total = len(audio)  # numpy slicing clamps; match it
+                with phase_timer("assemble speech concat"):
+                    base_audio = assemble_segments(
+                        audio_dev,
+                        [(min(c["start"], n_total), min(c["end"], n_total)) for c in clip_timestamps],
+                    )
+            else:
+                base_audio = torch.from_numpy(
+                    np.concatenate(audio_chunks).astype(np.float32, copy=False)
+                ).to(model.device)
             chunk_starts = np.concatenate([[0], np.cumsum(chunk_lengths)[:-1]])
             with phase_timer("chunked mel features"):
                 features = model.feature_extractor.chunk_features(

@@ -164,10 +164,11 @@ class phase_timer:
 def resolve_device(device="cuda") -> torch.device:
     """The device that model code runs on.
 
-    The default is the card.  Without one, asking for it raises: the port
-    never runs on the CPU unless the caller says ``device="cpu"``.
+    The default is the card, as is ``"auto"``.  Without one, asking for it
+    raises: the port never runs on the CPU unless the caller says
+    ``device="cpu"``.
     """
-    dev = torch.device(device)
+    dev = torch.device("cuda" if device == "auto" else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device={str(device)!r} needs a CUDA card, but "

@@ -57,7 +57,8 @@ class VadOptions:
 def upload_with_vad(audio: np.ndarray, return_audio: bool = True, device="cuda"):
     """Pipelined PCM upload and Silero forward.
 
-    The PCM goes to ``device`` on the int16 grid in slices of
+    The PCM goes to ``device`` on the int16 grid (in float32 under
+    ``FWT_I16_TRANSFER=0``) in slices of
     ``models/silero.py::VAD_SLICE_SAMPLES`` (2048 windows), and the VAD
     forward runs on each slice as it lands (the conv tower on its windows,
     the LSTM with its state and the 64-sample context carried from the
@@ -93,10 +94,14 @@ def upload_with_vad(audio: np.ndarray, return_audio: bool = True, device="cuda")
     expected_windows = n // _WINDOW + 1
     cuda = dev.type == "cuda"
 
-    q = torch.zeros(total, dtype=torch.int16, pin_memory=cuda)
-    q[:n] = torch.from_numpy(
-        np.clip(np.round(np.asarray(audio) * 32768.0), -32768, 32767).astype(np.int16)
-    )
+    if os.environ.get("FWT_I16_TRANSFER", "1") != "0":
+        q = torch.zeros(total, dtype=torch.int16, pin_memory=cuda)
+        q[:n] = torch.from_numpy(
+            np.clip(np.round(np.asarray(audio) * 32768.0), -32768, 32767).astype(np.int16)
+        )
+    else:
+        q = torch.zeros(total, dtype=torch.float32, pin_memory=cuda)
+        q[:n] = torch.from_numpy(np.asarray(audio, np.float32))
     audio_dev = torch.empty(n, dtype=torch.float32, device=dev) if return_audio else None
     tail = torch.zeros(_CONTEXT, dtype=torch.float32, device=dev)
     state = None
@@ -123,7 +128,7 @@ def upload_with_vad(audio: np.ndarray, return_audio: bool = True, device="cuda")
             # n is a whole number of slices: the reference pads one more
             # window past the end; one zero slice, made on the device,
             # gives its probability
-            zero = torch.zeros(VAD_SLICE_SAMPLES, dtype=torch.int16, device=dev)
+            zero = torch.zeros(VAD_SLICE_SAMPLES, dtype=q.dtype, device=dev)
             probs.append(_vad_slice_step(model, zero, tail, state)[0])
     return audio_dev, torch.cat(probs).cpu().numpy()
 
@@ -142,7 +147,8 @@ def get_speech_timestamps(
     array, whose VAD runs on ``device``, or a 1-D tensor already on a
     device (the batched pipeline's shared upload), whose VAD runs there.
     Both go through the same int16 grid (models/silero.py), so both give
-    the same decisions.  Under ``FWT_PIPELINED_VAD=1`` a numpy array takes
+    the same decisions (``FWT_I16_TRANSFER=0``: neither, float32 end to
+    end).  Under ``FWT_PIPELINED_VAD=1`` a numpy array takes
     the pipelined sliced upload (``upload_with_vad``), whose decisions
     are the same.
     """

@@ -9,7 +9,8 @@ type against the CPU, and at int8 the same tokens at batch 8 and 2 and
 under ``tensor_parallel=2``; the LayerNorm kernel against its plain
 version, a row's bits alone and among 10 to 12000 rows, and the int8
 pipeline at large-v3-turbo width giving equal segments at batch 8 and at
-batch 2; P2b bit for bit equal to its exact int64 reference.  Skips without
+batch 2; P2b bit for bit equal to its exact int64 reference; the
+whole-file log-mel on the card against the host path.  Skips without
 a card; on the card run
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -574,3 +575,13 @@ def test_a_group_on_cards_1_and_2_runs_from_card_0s_thread(card):
     model, got = _tp_segments(cfg, cpu, tok, "bfloat16", [1, 2], 2, audio)
     assert model.device == torch.device("cuda", 1) and torch.cuda.current_device() == 0
     assert got == want and len(got) > 0
+
+
+def test_device_log_mel_matches_the_host_path(card):
+    """The sequential path's whole-file log-mel on the card and the host
+    numpy path, each against a float64 DFT and against each other, at
+    479990 samples (the last frame reads the bucket's zeros) and at
+    150 s."""
+    errs = chip_smoke.check_device_log_mel(card, lengths=(479990, chip_smoke.P_SAMPLES))
+    assert set(errs) == {479990, chip_smoke.P_SAMPLES}
+    assert max(errs.values()) <= chip_smoke.LOG_MEL_TOL

@@ -39,6 +39,7 @@ import torch  # noqa: F401
 
 import faster_whisper_tpu.__main__ as jax_cli
 import faster_whisper_tpu.audio as jax_audio
+import faster_whisper_tpu.feature_extractor as jax_feature_extractor
 import faster_whisper_tpu.precompile as jax_precompile
 import faster_whisper_tpu.scheduler as jax_scheduler
 import faster_whisper_tpu.server as jax_server
@@ -47,6 +48,7 @@ import faster_whisper_tpu.validate as jax_validate
 import faster_whisper_tpu.vad as jax_vad
 import faster_whisper_tpu_torch.__main__ as port_cli
 import faster_whisper_tpu_torch.audio as port_audio
+import faster_whisper_tpu_torch.feature_extractor as port_feature_extractor
 import faster_whisper_tpu_torch.precompile as port_precompile
 import faster_whisper_tpu_torch.scheduler as port_scheduler
 import faster_whisper_tpu_torch.server as port_server
@@ -83,6 +85,12 @@ FUNCTIONS = {
         port_transcribe.BatchedInferencePipeline.transcribe,
     ),
     "decode_audio": (jax_audio.decode_audio, port_audio.decode_audio),
+    "FeatureExtractor.__init__": (
+        jax_feature_extractor.FeatureExtractor.__init__, port_feature_extractor.FeatureExtractor.__init__,
+    ),
+    "FeatureExtractor.__call__": (
+        jax_feature_extractor.FeatureExtractor.__call__, port_feature_extractor.FeatureExtractor.__call__,
+    ),
     "get_speech_timestamps": (jax_vad.get_speech_timestamps, port_vad.get_speech_timestamps),
     "ContinuousBatcher.__init__": (
         jax_scheduler.ContinuousBatcher.__init__, port_scheduler.ContinuousBatcher.__init__,
