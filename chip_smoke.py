@@ -193,11 +193,12 @@ Phases, each printing its own line with its seconds:
     on the CPU (equal tokens and times); requests h (bf16) and i (int8)
     through the pipeline and a (20 s) under ``tensor_parallel=2``: per
     decode step 4 launches per shard of K1 (K2) and K4, per encode 32 per
-    shard of K3, the all-reduces' share of a step, and the segments that
-    differ from one device's (printed; at bf16 the row-parallel partials
-    round once more; at int8, request i, none may differ); with two cards
-    h on ``[0, 1]`` (NCCL) must equal ``[0, 0]``'s, and with one a line
-    says that NCCL was not run;
+    shard of K3, the all-reduces' count and host time a step (the span
+    ``fwt.all_reduce``), and the segments that differ from one device's
+    (printed; at bf16 the row-parallel partials round once more; at int8,
+    request i, none may differ); with two cards h on ``[0, 1]`` (NCCL)
+    must equal ``[0, 0]``'s, and with one a line says that NCCL was not
+    run;
 15. the sequential log-mel and the upload knobs: the whole-file log-mel
     on the card (``FeatureExtractor(return_device=True)``, 128 mels) and
     the host numpy path at 1 s, 479990, 480000 and 480150 samples, 45 s,
@@ -3679,23 +3680,17 @@ def check_tp_layers(later, card):
     return one, tp
 
 
-def _reduce_report(group, events, steps, batch_seconds, per_step):
-    """The reductions' device time from their CUDA events, and their share
-    of a decode step: ``per_step`` reductions per step at the mean time of
-    the decode's (those over (B, K, ...) rows; the encoder's run over
-    (B, 1500, ...), the prefill's over the prompt)."""
-    torch.cuda.synchronize()
-    ms = {}
-    for start, end, shape in events:
-        kind = "encode" if shape[1] == 1500 else "decode" if shape[1] <= 16 else "prefill"
-        ms.setdefault(kind, []).append(start.elapsed_time(end))
+def _reduce_report(group, totals, steps, batch_seconds, per_step):
+    """The reductions' count and host time from the span ``fwt.all_reduce``
+    (``faster_whisper_tpu_torch/tracing.py``) over a whole request (encode,
+    prefill and decode), against the ``per_step`` reductions of a decode
+    step: host time, the launch of each reduction (a local sum's adds, or
+    NCCL's enqueue), not its device time."""
+    count, seconds = totals.get("fwt.all_reduce", (0, 0.0))
     step_ms = sum(batch_seconds) * 1e3 / max(steps, 1)
-    dec = ms.get("decode", [0.0])
-    mean = sum(dec) / len(dec)
-    each = ", ".join(f"{k}: {len(v)} in {sum(v):.3f} ms" for k, v in ms.items())
-    return (f"all-reduces ({group.transport}) on the lead's stream: {each} of device time; a decode "
-            f"step's {per_step} at {mean * 1e3:.2f} us each: {per_step * mean:.4f} ms of {step_ms:.3f} ms "
-            f"per step ({100 * per_step * mean / step_ms:.2f}%)")
+    return (f"all-reduces ({group.transport}): {count} in {seconds * 1e3:.3f} ms of host time, "
+            f"{count / max(steps, 1):.1f} a decode step ({per_step} in the step), "
+            f"{seconds * 1e3 / max(steps, 1):.4f} ms a step of {step_ms:.3f} ms")
 
 
 def run_tensor_parallel(later, speech, card):
@@ -3705,7 +3700,8 @@ def run_tensor_parallel(later, speech, card):
     ``device_index=[0, 0]``: well-formed segments, per decode step 4
     launches per shard of K1 (K2) and K4, per encode 32 of K3; the
     transport, wall seconds, ms per step, the card's peak (both shards),
-    the all-reduces' share of a step, and the segments that differ from
+    the all-reduces' count and host time a step (the span
+    ``fwt.all_reduce``), and the segments that differ from
     one device's request (printed; at int8, request i, none may differ:
     every product is exact, every all-reduce an integer sum, and K1/K2/K4
     split a row alike at 10 heads as at 20).  On two or more cards h on
@@ -3724,14 +3720,19 @@ def run_tensor_parallel(later, speech, card):
         return sum(x != y for x, y in zip(rows(a), rows(b))) + abs(len(a) - len(b))
 
     def batched(model, label, ref, forms, per_step):
-        group = model.model.params.group
-        group.events, stats = [], {}
-        counts, segments, seconds = run_batched(model, label, speech, cfg, stats=stats)
-        events, group.events = group.events, None
+        from faster_whisper_tpu_torch import tracing
+
+        group, stats = model.model.params.group, {}
+        tracing.reset()
+        tracing.enable(True)
+        try:
+            counts, segments, seconds = run_batched(model, label, speech, cfg, stats=stats)
+        finally:
+            tracing.enable(False)
         check_counts(counts, per_step=forms[:2], per_encode=forms[2], cfg=cfg, shards=2,
                      layout=ln_layout(model))
         print(f"request {label}: transport {group.transport}; {seconds:.3f} s wall; "
-              f"{_reduce_report(group, events, counts['steps'], stats['batch_seconds'], per_step)}; "
+              f"{_reduce_report(group, tracing.totals(), counts['steps'], stats['batch_seconds'], per_step)}; "
               f"{differ(segments, ref)} of {len(ref)} segments differ from one device's on {card}")
         return counts, segments
 

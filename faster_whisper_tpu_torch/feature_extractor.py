@@ -19,7 +19,7 @@ chunked_log_mel``).
 import numpy as np
 import torch
 
-from faster_whisper_tpu_torch.utils import resolve_device
+from faster_whisper_tpu_torch.utils import resolve_device, span
 
 _BUCKET_FRAMES = 1500
 
@@ -167,11 +167,12 @@ class FeatureExtractor:
         Equivalent to ``[self(audio[s:s+l])[..., :-1]`` zero-padded to the
         30 s window ``for s, l in zip(starts, lengths)]`` (reference:
         transcribe.py:463-467 + :514-516).  Returns a (N, n_mels,
-        nb_max_frames) float32 tensor."""
+        nb_max_frames) float32 tensor; the call is the span ``fwt.mel``."""
         from faster_whisper_tpu_torch.ops.mel import chunked_log_mel
 
-        mel_filters, cos_b, sin_b = self._constants(audio.device)
-        return chunked_log_mel(
-            audio, starts, lengths, mel_filters, cos_b, sin_b,
-            n_fft=self.n_fft, hop_length=self.hop_length, n_frames_win=self.nb_max_frames,
-        )
+        with span("fwt.mel"):
+            mel_filters, cos_b, sin_b = self._constants(audio.device)
+            return chunked_log_mel(
+                audio, starts, lengths, mel_filters, cos_b, sin_b,
+                n_fft=self.n_fft, hop_length=self.hop_length, n_frames_win=self.nb_max_frames,
+            )

@@ -40,6 +40,14 @@ decode is dispatched" is a point in it: ``after_first_launch`` runs a
 callback once, after the prefill (and, in beam search, the first step) is
 launched and before the host first waits for the device.  The sequential
 path queues its speculative next-window encode there.
+
+Spans (``tracing``): ``fwt.decode.prefill`` (the prefill and the caches'
+expansion), then per iteration ``fwt.decode.select`` (the logits rules
+through the ancestry update, or through the sampled token's write),
+``fwt.decode.step`` (the decoder step, whose count is the step count, with
+``fwt.decode.logits`` around its head inside), ``fwt.decode.stop`` (the
+stop read) and, at a rung, ``fwt.decode.ladder``; ``fwt.collect`` around
+``generate_collect``.
 """
 
 import contextlib
@@ -76,6 +84,7 @@ from faster_whisper_tpu_torch.ops import _build
 from faster_whisper_tpu_torch.ops.beam_attention import beam_attend_append
 from faster_whisper_tpu_torch.ops.cross_attention import cross_attend
 from faster_whisper_tpu_torch.ops.quant import QuantKV, quantize_kv
+from faster_whisper_tpu_torch.tracing import span
 
 
 @dataclass(frozen=True)
@@ -202,7 +211,9 @@ def _gen_decoder_step(
 
     if not isinstance(self_k, list):
         sk, sv = sk[0], sv[0]
-    return _logits(params, xs), sk, sv
+    with span("fwt.decode.logits"):
+        logits = _logits(params, xs)
+    return logits, sk, sv
 
 
 _gen_decoder_step.calls = 0
@@ -397,12 +408,13 @@ def beam_search(
     needs_history = _needs_history(proc_opts)
 
     width = phases[0]  # the tables' size on this rung
-    first_logits, cache0, no_speech_prob = _prefill(
-        params, config, meta, xa, prompt, prompt_len, sot_pos, width
-    )
-    self_k, self_v, cross_k, cross_v = _expand_caches(
-        cache0, K, gen_opts.kv_int8, cross_qmax=7 if gen_opts.int4 else 127
-    )
+    with span("fwt.decode.prefill"):
+        first_logits, cache0, no_speech_prob = _prefill(
+            params, config, meta, xa, prompt, prompt_len, sot_pos, width
+        )
+        self_k, self_v, cross_k, cross_v = _expand_caches(
+            cache0, K, gen_opts.kv_int8, cross_qmax=7 if gen_opts.int4 else 127
+        )
 
     k_arange = torch.arange(K, device=dev)
     cur_len = prompt_len.clone()  # (B,) shared by all beams of a row
@@ -430,93 +442,96 @@ def beam_search(
             # pad of 0 is a valid slot, written before it is read).
             rung += 1
             width = phases[rung]
-            self_k = _grow_cache(self_k, width)
-            self_v = _grow_cache(self_v, width)
-            anc = _pad_ctx(anc, 2, width)
-            hist_tok, hist_par = _pad_ctx(hist_tok, 1, width), _pad_ctx(hist_par, 1, width)
-            eot_buf_score = _pad_ctx(eot_buf_score, 1, width, NEG_INF)
-            eot_buf_slot = _pad_ctx(eot_buf_slot, 1, width)
-            len_buf = _pad_ctx(len_buf, 1, width)
-            ctx_ids = torch.arange(width, device=dev)
-        live = ~done
-        n_sampled = cur_len - prompt_len  # (B,)
-        if needs_history:
-            view = _tokens_view(hist_tok, anc)
-            logprobs = apply_logits_rules_logprobs(
-                cur_logits.reshape(b * K, V),
-                view.reshape(b * K, width),
-                cur_len[:, None].expand(b, K).reshape(-1),
-                prompt_len[:, None].expand(b, K).reshape(-1),
-                meta,
-                proc_opts,
-            ).reshape(b, K, V)
-        else:
-            logprobs = apply_logits_rules_logprobs_carried(
-                cur_logits.reshape(b * K, V),
-                n_sampled[:, None].expand(b, K).reshape(-1),
-                last_tok.reshape(-1),
-                penult_tok.reshape(-1),
-                ts_max.reshape(-1),
-                meta,
-                proc_opts,
-            ).reshape(b, K, V)
+            with span("fwt.decode.ladder"):
+                self_k = _grow_cache(self_k, width)
+                self_v = _grow_cache(self_v, width)
+                anc = _pad_ctx(anc, 2, width)
+                hist_tok, hist_par = _pad_ctx(hist_tok, 1, width), _pad_ctx(hist_par, 1, width)
+                eot_buf_score = _pad_ctx(eot_buf_score, 1, width, NEG_INF)
+                eot_buf_slot = _pad_ctx(eot_buf_slot, 1, width)
+                len_buf = _pad_ctx(len_buf, 1, width)
+                ctx_ids = torch.arange(width, device=dev)
+        with span("fwt.decode.select"):
+            live = ~done
+            n_sampled = cur_len - prompt_len  # (B,)
+            if needs_history:
+                view = _tokens_view(hist_tok, anc)
+                logprobs = apply_logits_rules_logprobs(
+                    cur_logits.reshape(b * K, V),
+                    view.reshape(b * K, width),
+                    cur_len[:, None].expand(b, K).reshape(-1),
+                    prompt_len[:, None].expand(b, K).reshape(-1),
+                    meta,
+                    proc_opts,
+                ).reshape(b, K, V)
+            else:
+                logprobs = apply_logits_rules_logprobs_carried(
+                    cur_logits.reshape(b * K, V),
+                    n_sampled[:, None].expand(b, K).reshape(-1),
+                    last_tok.reshape(-1),
+                    penult_tok.reshape(-1),
+                    ts_max.reshape(-1),
+                    meta,
+                    proc_opts,
+                ).reshape(b, K, V)
 
-        total = sum_lp[:, :, None] + logprobs  # (B, K, V)
-        cand_val, cand_idx = torch.topk(total.reshape(b, K * V), 2 * K)
-        cand_beam = cand_idx // V  # (B, 2K)
-        cand_tok = cand_idx % V
-        is_eot = cand_tok == meta.eot
+            total = sum_lp[:, :, None] + logprobs  # (B, K, V)
+            cand_val, cand_idx = torch.topk(total.reshape(b, K * V), 2 * K)
+            cand_beam = cand_idx // V  # (B, 2K)
+            cand_tok = cand_idx % V
+            is_eot = cand_tok == meta.eot
 
-        # Record this step's end-of-text candidates; the pool is merged once
-        # after the loop.  Until the pool holds F entries every valid
-        # candidate takes a free place, so min(F, nfin + #valid) is its size.
-        safe_len = n_sampled.clamp(min=1).float()[:, None]
-        norm_score = cand_val / safe_len ** lp_pow
-        eot_valid = is_eot & live[:, None]
-        eot_scores = torch.where(eot_valid, norm_score, NEG_INF)
-        eot_buf_score[:, step_i] = torch.where(live[:, None], eot_scores, eot_buf_score[:, step_i])
-        eot_buf_slot[:, step_i] = torch.where(live[:, None], cand_beam, eot_buf_slot[:, step_i])
-        len_buf[:, step_i] = torch.where(live, cur_len, len_buf[:, step_i])
-        nfin = torch.clamp(nfin + eot_valid.sum(dim=1), max=F)
+            # Record this step's end-of-text candidates; the pool is merged once
+            # after the loop.  Until the pool holds F entries every valid
+            # candidate takes a free place, so min(F, nfin + #valid) is its size.
+            safe_len = n_sampled.clamp(min=1).float()[:, None]
+            norm_score = cand_val / safe_len ** lp_pow
+            eot_valid = is_eot & live[:, None]
+            eot_scores = torch.where(eot_valid, norm_score, NEG_INF)
+            eot_buf_score[:, step_i] = torch.where(live[:, None], eot_scores, eot_buf_score[:, step_i])
+            eot_buf_slot[:, step_i] = torch.where(live[:, None], cand_beam, eot_buf_slot[:, step_i])
+            len_buf[:, step_i] = torch.where(live, cur_len, len_buf[:, step_i])
+            nfin = torch.clamp(nfin + eot_valid.sum(dim=1), max=F)
 
-        # Refill the active beams with the best K non-eot candidates, in
-        # score order.
-        keep = ~is_eot
-        rank = torch.cumsum(keep.long(), dim=1)  # 1-based among kept
-        slot = torch.where(keep & (rank <= K), rank - 1, K)  # K = drop
-        parent = _scatter_slots(cand_beam, slot, K, 0)
-        new_tok = _scatter_slots(cand_tok, slot, K, 0)
-        new_cum = _scatter_slots(cand_val, slot, K, NEG_INF)
+            # Refill the active beams with the best K non-eot candidates, in
+            # score order.
+            keep = ~is_eot
+            rank = torch.cumsum(keep.long(), dim=1)  # 1-based among kept
+            slot = torch.where(keep & (rank <= K), rank - 1, K)  # K = drop
+            parent = _scatter_slots(cand_beam, slot, K, 0)
+            new_tok = _scatter_slots(cand_tok, slot, K, 0)
+            new_cum = _scatter_slots(cand_val, slot, K, NEG_INF)
 
-        # History tables; finished rows must not overwrite theirs.
-        write_pos = cur_len.clamp(0, width - 1)  # (B,)
-        hit = (ctx_ids[None, :, None] == write_pos[:, None, None]) & live[:, None, None]
-        hist_tok = torch.where(hit, new_tok[:, None, :], hist_tok)
-        hist_par = torch.where(hit, parent[:, None, :], hist_par)
+            # History tables; finished rows must not overwrite theirs.
+            write_pos = cur_len.clamp(0, width - 1)  # (B,)
+            hit = (ctx_ids[None, :, None] == write_pos[:, None, None]) & live[:, None, None]
+            hist_tok = torch.where(hit, new_tok[:, None, :], hist_tok)
+            hist_par = torch.where(hit, parent[:, None, :], hist_par)
 
-        # Carried rule scalars follow the re-parenting.
-        penult_new = _gather_rows(last_tok, parent)
-        ts_prev = _gather_rows(ts_max, parent)
-        ts_new = torch.where(
-            new_tok >= meta.timestamp_begin, torch.maximum(ts_prev, new_tok), ts_prev
-        )
+            # Carried rule scalars follow the re-parenting.
+            penult_new = _gather_rows(last_tok, parent)
+            ts_prev = _gather_rows(ts_max, parent)
+            ts_new = torch.where(
+                new_tok >= meta.timestamp_begin, torch.maximum(ts_prev, new_tok), ts_prev
+            )
 
-        # Virtual re-parenting: permute the ancestry table; the new token's
-        # K/V go to each beam's own slot in the decoder step below.
-        write_pos_bk = write_pos[:, None].expand(b, K)
-        anc = _gather_rows(anc, parent)
-        anc = torch.where(
-            ctx_ids[None, None, :] == write_pos_bk[:, :, None],
-            k_arange.int()[None, :, None],
-            anc,
-        ).contiguous()
+            # Virtual re-parenting: permute the ancestry table; the new token's
+            # K/V go to each beam's own slot in the decoder step below.
+            write_pos_bk = write_pos[:, None].expand(b, K)
+            anc = _gather_rows(anc, parent)
+            anc = torch.where(
+                ctx_ids[None, None, :] == write_pos_bk[:, :, None],
+                k_arange.int()[None, :, None],
+                anc,
+            ).contiguous()
 
         # Finished rows decode garbage at a frozen position: their slots
         # and logits are never read again.
-        cur_logits, self_k, self_v = _gen_decoder_step(
-            params, config, new_tok, write_pos_bk, write_pos.int(),
-            self_k, self_v, cross_k, cross_v, anc,
-        )
+        with span("fwt.decode.step"):
+            cur_logits, self_k, self_v = _gen_decoder_step(
+                params, config, new_tok, write_pos_bk, write_pos.int(),
+                self_k, self_v, cross_k, cross_v, anc,
+            )
 
         cur_len_new = torch.clamp(cur_len + 1, max=ctx)
         done_new = done | (nfin >= F) | (cur_len_new >= cap)
@@ -526,7 +541,9 @@ def beam_search(
         done = done_new
         step_i += 1
         _fire_after_first_launch()
-        if bool(done.all()):
+        with span("fwt.decode.stop"):
+            stop = bool(done.all())
+        if stop:
             break
 
     # A loop that ended on an early rung hands back full tables.
@@ -587,12 +604,13 @@ def sample(
     needs_history = _needs_history(proc_opts)
 
     width = phases[0]  # the tables' size on this rung
-    first_logits, cache0, no_speech_prob = _prefill(
-        params, config, meta, xa, prompt, prompt_len, sot_pos, width
-    )
-    self_k, self_v, cross_k, cross_v = _expand_caches(
-        cache0, K, gen_opts.kv_int8, cross_qmax=7 if gen_opts.int4 else 127
-    )
+    with span("fwt.decode.prefill"):
+        first_logits, cache0, no_speech_prob = _prefill(
+            params, config, meta, xa, prompt, prompt_len, sot_pos, width
+        )
+        self_k, self_v, cross_k, cross_v = _expand_caches(
+            cache0, K, gen_opts.kv_int8, cross_qmax=7 if gen_opts.int4 else 127
+        )
 
     ctx_ids = torch.arange(width, device=dev)
     tokens = torch.zeros((b, K, width), dtype=torch.long, device=dev)
@@ -614,78 +632,83 @@ def sample(
         if rung + 1 < len(phases) and step_i == phases[rung] - p:
             rung += 1
             width = phases[rung]
-            self_k = _grow_cache(self_k, width)
-            self_v = _grow_cache(self_v, width)
-            tokens = _pad_ctx(tokens, 2, width)
-            anc_id = identity_anc(width)
-            ctx_ids = torch.arange(width, device=dev)
+            with span("fwt.decode.ladder"):
+                self_k = _grow_cache(self_k, width)
+                self_v = _grow_cache(self_v, width)
+                tokens = _pad_ctx(tokens, 2, width)
+                anc_id = identity_anc(width)
+                ctx_ids = torch.arange(width, device=dev)
         active = ~finished & (lens < cap)
         _fire_after_first_launch()
-        if not bool(active.any()):
+        with span("fwt.decode.stop"):
+            stop = not bool(active.any())
+        if stop:
             break
-        if needs_history:
-            logprobs = apply_logits_rules_logprobs(
-                cur_logits.reshape(b * K, V),
-                tokens.reshape(b * K, width),
-                lens.reshape(-1),
-                prompt_len[:, None].expand(b, K).reshape(-1),
-                meta,
-                proc_opts,
-            ).reshape(b, K, V)
-        else:
-            logprobs = apply_logits_rules_logprobs_carried(
-                cur_logits.reshape(b * K, V),
-                (lens - prompt_len[:, None]).reshape(-1),
-                last_tok.reshape(-1),
-                penult_tok.reshape(-1),
-                ts_max.reshape(-1),
-                meta,
-                proc_opts,
-            ).reshape(b, K, V)
+        with span("fwt.decode.select"):
+            if needs_history:
+                logprobs = apply_logits_rules_logprobs(
+                    cur_logits.reshape(b * K, V),
+                    tokens.reshape(b * K, width),
+                    lens.reshape(-1),
+                    prompt_len[:, None].expand(b, K).reshape(-1),
+                    meta,
+                    proc_opts,
+                ).reshape(b, K, V)
+            else:
+                logprobs = apply_logits_rules_logprobs_carried(
+                    cur_logits.reshape(b * K, V),
+                    (lens - prompt_len[:, None]).reshape(-1),
+                    last_tok.reshape(-1),
+                    penult_tok.reshape(-1),
+                    ts_max.reshape(-1),
+                    meta,
+                    proc_opts,
+                ).reshape(b, K, V)
 
-        # Scores use the T=1 distribution; softmax(logprobs / T) equals
-        # softmax(masked_logits / T), the log-normalizer being a shift.
-        sample_logits = logprobs / temperature[:, None, None]
-        if gen_opts.sampling_topk > 0:
-            kth = torch.topk(sample_logits, gen_opts.sampling_topk).values[..., -1:]
-            sample_logits = torch.where(sample_logits < kth, NEG_INF, sample_logits)
-        probs = torch.softmax(sample_logits, dim=-1)
-        next_tok = torch.stack(
-            [
-                torch.multinomial(probs[i], 1, generator=generators[i])[:, 0]
-                for i in range(b)
-            ]
-        )  # (B, K)
-        next_tok = torch.where(finished, meta.eot, next_tok)
+            # Scores use the T=1 distribution; softmax(logprobs / T) equals
+            # softmax(masked_logits / T), the log-normalizer being a shift.
+            sample_logits = logprobs / temperature[:, None, None]
+            if gen_opts.sampling_topk > 0:
+                kth = torch.topk(sample_logits, gen_opts.sampling_topk).values[..., -1:]
+                sample_logits = torch.where(sample_logits < kth, NEG_INF, sample_logits)
+            probs = torch.softmax(sample_logits, dim=-1)
+            next_tok = torch.stack(
+                [
+                    torch.multinomial(probs[i], 1, generator=generators[i])[:, 0]
+                    for i in range(b)
+                ]
+            )  # (B, K)
+            next_tok = torch.where(finished, meta.eot, next_tok)
 
-        tok_lp = torch.gather(logprobs, 2, next_tok[:, :, None])[:, :, 0]
-        sum_lp = sum_lp + torch.where(active, tok_lp, 0.0)
+            tok_lp = torch.gather(logprobs, 2, next_tok[:, :, None])[:, :, 0]
+            sum_lp = sum_lp + torch.where(active, tok_lp, 0.0)
 
-        write_pos = lens.clamp(0, width - 1)  # (B, K) position of the new token
-        is_eot = next_tok == meta.eot
-        # eot is recorded in the buffer but not counted in the length
-        hit = ctx_ids[None, None, :] == write_pos[:, :, None]
-        tokens = torch.where(hit & active[:, :, None], next_tok[:, :, None], tokens)
-        adv = active & ~is_eot
-        lens = torch.where(adv, lens + 1, lens)
-        finished = finished | is_eot
+            write_pos = lens.clamp(0, width - 1)  # (B, K) position of the new token
+            is_eot = next_tok == meta.eot
+            # eot is recorded in the buffer but not counted in the length
+            hit = ctx_ids[None, None, :] == write_pos[:, :, None]
+            tokens = torch.where(hit & active[:, :, None], next_tok[:, :, None], tokens)
+            adv = active & ~is_eot
+            lens = torch.where(adv, lens + 1, lens)
+            finished = finished | is_eot
 
-        penult_tok = torch.where(adv, last_tok, penult_tok)
-        last_tok = torch.where(adv, next_tok, last_tok)
-        ts_max = torch.where(
-            adv & (next_tok >= meta.timestamp_begin),
-            torch.maximum(ts_max, next_tok),
-            ts_max,
-        )
+            penult_tok = torch.where(adv, last_tok, penult_tok)
+            last_tok = torch.where(adv, next_tok, last_tok)
+            ts_max = torch.where(
+                adv & (next_tok >= meta.timestamp_begin),
+                torch.maximum(ts_max, next_tok),
+                ts_max,
+            )
 
         # Active samples of a row share one write position; finished ones
         # get ignored garbage at that position on the card (K1 writes every
         # slot at pos_row).
-        cur_logits, self_k, self_v = _gen_decoder_step(
-            params, config, torch.where(finished, 0, next_tok), write_pos,
-            write_pos.max(dim=1).values.int(), self_k, self_v, cross_k,
-            cross_v, anc_id,
-        )
+        with span("fwt.decode.step"):
+            cur_logits, self_k, self_v = _gen_decoder_step(
+                params, config, torch.where(finished, 0, next_tok), write_pos,
+                write_pos.max(dim=1).values.int(), self_k, self_v, cross_k,
+                cross_v, anc_id,
+            )
         step_i += 1
 
     return _pad_ctx(tokens, 2, ctx), lens, sum_lp, finished, no_speech_prob
@@ -842,53 +865,55 @@ def generate_dispatch(
 
 
 def generate_collect(pending: PendingGeneration) -> List[WhisperGenerationResult]:
-    """Copy a generation's tensors to the host and unpack the hypotheses."""
-    prompt_lens = pending.prompt_lens
-    length_penalty = pending.length_penalty
-    b = len(prompt_lens)
-    arrays = [a.cpu().numpy() for a in pending.arrays]
-    results: List[WhisperGenerationResult] = []
+    """Copy a generation's tensors to the host and unpack the hypotheses:
+    the span ``fwt.collect``."""
+    with span("fwt.collect"):
+        prompt_lens = pending.prompt_lens
+        length_penalty = pending.length_penalty
+        b = len(prompt_lens)
+        arrays = [a.cpu().numpy() for a in pending.arrays]
+        results: List[WhisperGenerationResult] = []
 
-    if pending.kind == "sample":
-        tokens, lens, sum_lp, _finished, nsp = arrays
+        if pending.kind == "sample":
+            tokens, lens, sum_lp, _finished, nsp = arrays
+            for i in range(b):
+                gen_lens = lens[i] - prompt_lens[i]
+                scores = sum_lp[i] / np.maximum(gen_lens, 1) ** length_penalty
+                order = np.argsort(-scores)
+                seqs = [tokens[i, j, prompt_lens[i] : lens[i, j]].tolist() for j in order]
+                results.append(
+                    WhisperGenerationResult(
+                        sequences_ids=seqs,
+                        scores=[float(scores[j]) for j in order],
+                        no_speech_prob=float(nsp[i]),
+                    )
+                )
+            return results
+
+        (hist_tok, hist_par, fin_slot, fin_lens, fin_scores, cur_len,
+         act_score, nsp, _pl) = arrays
         for i in range(b):
-            gen_lens = lens[i] - prompt_lens[i]
-            scores = sum_lp[i] / np.maximum(gen_lens, 1) ** length_penalty
-            order = np.argsort(-scores)
-            seqs = [tokens[i, j, prompt_lens[i] : lens[i, j]].tolist() for j in order]
+            begin = int(prompt_lens[i])
+            have = fin_scores[i] > -1e29
+            if have.any():
+                seqs = [
+                    _backtrack(
+                        hist_tok[i], hist_par[i], int(fin_slot[i, j]),
+                        int(fin_lens[i, j]), begin,
+                    )
+                    for j in range(fin_scores.shape[1])
+                    if have[j]
+                ]
+                scores = [float(s) for s in fin_scores[i][have]]
+            else:
+                seqs = [_backtrack(hist_tok[i], hist_par[i], 0, int(cur_len[i]), begin)]
+                scores = [float(act_score[i])]
             results.append(
                 WhisperGenerationResult(
-                    sequences_ids=seqs,
-                    scores=[float(scores[j]) for j in order],
-                    no_speech_prob=float(nsp[i]),
+                    sequences_ids=seqs, scores=scores, no_speech_prob=float(nsp[i])
                 )
             )
         return results
-
-    (hist_tok, hist_par, fin_slot, fin_lens, fin_scores, cur_len,
-     act_score, nsp, _pl) = arrays
-    for i in range(b):
-        begin = int(prompt_lens[i])
-        have = fin_scores[i] > -1e29
-        if have.any():
-            seqs = [
-                _backtrack(
-                    hist_tok[i], hist_par[i], int(fin_slot[i, j]),
-                    int(fin_lens[i, j]), begin,
-                )
-                for j in range(fin_scores.shape[1])
-                if have[j]
-            ]
-            scores = [float(s) for s in fin_scores[i][have]]
-        else:
-            seqs = [_backtrack(hist_tok[i], hist_par[i], 0, int(cur_len[i]), begin)]
-            scores = [float(act_score[i])]
-        results.append(
-            WhisperGenerationResult(
-                sequences_ids=seqs, scores=scores, no_speech_prob=float(nsp[i])
-            )
-        )
-    return results
 
 
 def _backtrack(hist_tok, hist_par, slot: int, end_len: int, begin: int):

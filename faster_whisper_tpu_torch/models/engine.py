@@ -56,6 +56,7 @@ from faster_whisper_tpu_torch.ops.quant import QuantizedLinear
 from faster_whisper_tpu_torch.parallel.collectives import ShardGroup
 from faster_whisper_tpu_torch.parallel.mesh import ShardedParams, shard_params
 from faster_whisper_tpu_torch.tokenizer import _LANGUAGE_CODES
+from faster_whisper_tpu_torch.tracing import span
 from faster_whisper_tpu_torch.utils import steady_float32
 
 
@@ -518,13 +519,13 @@ class WhisperEngine:
         )
 
     def _encode_on(self, replica: int, feats: torch.Tensor) -> torch.Tensor:
+        """The encoder on replica ``replica``: the span ``fwt.encode``."""
         dev, params = self.replicas[replica]
-        feats = feats.to(device=dev, dtype=torch.float32)
         # A float32 encoder's convolutions read the process's TF32 flags,
         # which another thread's VAD or log-mel turns off for its block.
         f32 = M.lead(params)["encoder"]["conv1_w"].dtype == torch.float32
-        with torch.no_grad(), steady_float32() if f32 else contextlib.nullcontext():
-            return M.encode(params, self.config, feats)
+        with span("fwt.encode"), torch.no_grad(), steady_float32() if f32 else contextlib.nullcontext():
+            return M.encode(params, self.config, feats.to(device=dev, dtype=torch.float32))
 
     def generate(self, encoder_output, prompts, **kwargs) -> List[WhisperGenerationResult]:
         return generate_collect(self.generate_dispatch(encoder_output, prompts, **kwargs))

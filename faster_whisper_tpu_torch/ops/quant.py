@@ -28,6 +28,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from faster_whisper_tpu_torch.tracing import span
+
 # torch._int_mm on a CUDA tensor wants more than 16 rows and a contraction
 # and output width that are multiples of 8.  Below a contraction of 128
 # (group scales of 64 input rows or fewer; a row-parallel shard of 64 input
@@ -161,10 +163,12 @@ def int8_dense(
     output cast (the logits head wants float32 scores).  Group-wise scales
     take one product per group of input rows (``torch._int_mm`` into one
     int32 buffer of the groups' partials); each partial is rescaled by its own
-    scales and the groups summed in float32, then rescaled by the rows'."""
-    xf = x.float()
-    xq, sx = _quantize_rows(xf, xf.abs().amax(dim=-1, keepdim=True))
-    return _rescale(_int8_product(xq, w), sx, w, b, out_dtype or x.dtype)
+    scales and the groups summed in float32, then rescaled by the rows'.
+    The call is the span ``fwt.int8_dense``."""
+    with span("fwt.int8_dense"):
+        xf = x.float()
+        xq, sx = _quantize_rows(xf, xf.abs().amax(dim=-1, keepdim=True))
+        return _rescale(_int8_product(xq, w), sx, w, b, out_dtype or x.dtype)
 
 
 def int8_dense_rows(xs, ws, bs, group, out_dtype=None) -> list:
@@ -179,14 +183,16 @@ def int8_dense_rows(xs, ws, bs, group, out_dtype=None) -> list:
     products are summed, exactly, before the float32 rescale: the result
     is bit-equal to ``int8_dense`` on the unsharded weight.  With group
     scales each shard rescales its own groups and the float32 group sums
-    are reduced, in another order than one shard's sum over all groups."""
-    xfs = [x.float() for x in xs]
-    amax = group.all_reduce_max([xf.abs().amax(dim=-1, keepdim=True) for xf in xfs])
-    coded = [_quantize_rows(xf, a) for xf, a in zip(xfs, amax)]
-    accs = group.all_reduce_sum([_int8_product(xq, w) for (xq, _), w in zip(coded, ws)])
-    return group.replicated(
-        lambda acc, c, w, b: _rescale(acc, c[1], w, b, out_dtype or xs[0].dtype), accs, coded, ws, bs,
-    )
+    are reduced, in another order than one shard's sum over all groups.
+    The call is one span ``fwt.int8_dense``."""
+    with span("fwt.int8_dense"):
+        xfs = [x.float() for x in xs]
+        amax = group.all_reduce_max([xf.abs().amax(dim=-1, keepdim=True) for xf in xfs])
+        coded = [_quantize_rows(xf, a) for xf, a in zip(xfs, amax)]
+        accs = group.all_reduce_sum([_int8_product(xq, w) for (xq, _), w in zip(coded, ws)])
+        return group.replicated(
+            lambda acc, c, w, b: _rescale(acc, c[1], w, b, out_dtype or xs[0].dtype), accs, coded, ws, bs,
+        )
 
 
 def _quantize_params(params: dict, dec_qmax: int, group_size: Optional[int] = None) -> dict:

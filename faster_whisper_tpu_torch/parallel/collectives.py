@@ -20,15 +20,17 @@ The transport is chosen once, from the layout, when the group is built:
     sum is explicit: in shard order, once per device, on that device.
 
 With two shards the sum of two bf16 or int32 partials is one rounding of a
-commutative sum, so both transports give equal bits.
+commutative sum, so both transports give equal bits.  Each reduction is
+the span ``fwt.all_reduce`` (``tracing``).
 """
 
-import contextlib
 import functools
 
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Sequence
 
 import torch
+
+from faster_whisper_tpu_torch.tracing import span
 
 _NCCL_SUM, _NCCL_MAX = 0, 2  # ncclRedOp_t
 
@@ -49,9 +51,6 @@ class ShardGroup:
         self.first = [self.devices.index(d) for d in self.devices]
         distinct = len(set(self.devices)) == self.size
         self.transport = "nccl" if self.size > 1 and distinct and "cuda" in kinds else "local"
-        # (start, end, shape) of each reduction, CUDA events on the lead's
-        # stream, while a caller holds a list here (``_timed``)
-        self.events: Optional[list] = None
         if self.transport == "nccl":
             if not hasattr(torch._C, "_nccl_all_reduce"):
                 raise RuntimeError(
@@ -98,7 +97,7 @@ class ShardGroup:
         parts = list(parts)
         if self.size == 1:
             return parts
-        with self._timed(parts[0].shape):
+        with span("fwt.all_reduce"):
             if self.transport == "nccl":
                 parts = [p.contiguous() for p in parts]
                 self._nccl(parts, op)
@@ -117,18 +116,6 @@ class ShardGroup:
         import torch.cuda.nccl as nccl
 
         nccl.all_reduce(parts, op=op)
-
-    @contextlib.contextmanager
-    def _timed(self, shape):
-        if self.events is None or self.lead.type != "cuda":
-            yield
-            return
-        stream = torch.cuda.current_stream(self.lead)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record(stream)
-        yield
-        end.record(stream)
-        self.events.append((start, end, tuple(shape)))
 
 
 @functools.lru_cache(maxsize=None)

@@ -78,6 +78,7 @@ from faster_whisper_tpu_torch.utils import (
     phase_timer,
     resolve_device,
     side_stream,
+    span,
 )
 from faster_whisper_tpu_torch.vad import (
     SpeechTimestampsMap,
@@ -1545,37 +1546,38 @@ class BatchedInferencePipeline:
         dispatch, before its collect."""
         outputs = self._collect_segment_batch(pending, options)
 
-        segmented_outputs = []
-        segment_sizes = []
-        for chunk_metadata, output in zip(chunks_metadata, outputs):
-            duration = chunk_metadata["duration"]
-            segment_size = int(ceil(duration) * self.model.frames_per_second)
-            segment_sizes.append(segment_size)
-            subsegments, _seek, _single_timestamp_ending = self.model._split_segments_by_timestamps(
-                tokenizer=tokenizer,
-                tokens=output["tokens"],
-                time_offset=chunk_metadata["offset"],
-                segment_size=segment_size,
-                segment_duration=duration,
-                seek=0,
-            )
-            segmented_outputs.append(
-                [
-                    dict(
-                        text=tokenizer.decode(subsegment["tokens"]),
-                        avg_logprob=output["avg_logprob"],
-                        no_speech_prob=output["no_speech_prob"],
-                        tokens=subsegment["tokens"],
-                        start=subsegment["start"],
-                        end=subsegment["end"],
-                        compression_ratio=get_compression_ratio(
-                            tokenizer.decode(subsegment["tokens"])
-                        ),
-                        seek=int(chunk_metadata["offset"] * self.model.frames_per_second),
-                    )
-                    for subsegment in subsegments
-                ]
-            )
+        with span("fwt.pipeline.segments"):
+            segmented_outputs = []
+            segment_sizes = []
+            for chunk_metadata, output in zip(chunks_metadata, outputs):
+                duration = chunk_metadata["duration"]
+                segment_size = int(ceil(duration) * self.model.frames_per_second)
+                segment_sizes.append(segment_size)
+                subsegments, _seek, _single_timestamp_ending = self.model._split_segments_by_timestamps(
+                    tokenizer=tokenizer,
+                    tokens=output["tokens"],
+                    time_offset=chunk_metadata["offset"],
+                    segment_size=segment_size,
+                    segment_duration=duration,
+                    seek=0,
+                )
+                segmented_outputs.append(
+                    [
+                        dict(
+                            text=tokenizer.decode(subsegment["tokens"]),
+                            avg_logprob=output["avg_logprob"],
+                            no_speech_prob=output["no_speech_prob"],
+                            tokens=subsegment["tokens"],
+                            start=subsegment["start"],
+                            end=subsegment["end"],
+                            compression_ratio=get_compression_ratio(
+                                tokenizer.decode(subsegment["tokens"])
+                            ),
+                            seek=int(chunk_metadata["offset"] * self.model.frames_per_second),
+                        )
+                        for subsegment in subsegments
+                    ]
+                )
 
         if options.word_timestamps:
             state = self.model.add_word_timestamps_dispatch(
@@ -1783,7 +1785,7 @@ class BatchedInferencePipeline:
                 and vad_filter
                 and os.environ.get("FWT_PIPELINED_VAD", "0") == "1"
             ):
-                with phase_timer("pcm upload + vad dispatch (pipelined)"):
+                with span("fwt.vad", phase="pcm upload + vad dispatch (pipelined)"):
                     audio_dev, vad_probs = upload_with_vad(audio, device=model.device)
             else:
                 with phase_timer("pcm upload"):
@@ -1809,9 +1811,10 @@ class BatchedInferencePipeline:
                             device=model.device,
                         )
                     else:
-                        clip_timestamps = speech_timestamps_from_probs(
-                            vad_probs, len(audio), vad_parameters, sampling_rate
-                        )
+                        with span("fwt.vad"):
+                            clip_timestamps = speech_timestamps_from_probs(
+                                vad_probs, len(audio), vad_parameters, sampling_rate
+                            )
             elif duration < chunk_length:
                 clip_timestamps = [{"start": 0, "end": audio.shape[0]}]
             else:
@@ -1821,9 +1824,10 @@ class BatchedInferencePipeline:
                 )
 
             clip_timestamps_provided = False
-            audio_chunks, chunks_metadata = collect_chunks(
-                audio, clip_timestamps, max_duration=chunk_length
-            )
+            with span("fwt.pipeline.chunks"):
+                audio_chunks, chunks_metadata = collect_chunks(
+                    audio, clip_timestamps, max_duration=chunk_length
+                )
         else:
             clip_timestamps_provided = True
             clip_timestamps = [
@@ -1831,23 +1835,24 @@ class BatchedInferencePipeline:
                 for segment in clip_timestamps
             ]
 
-            audio_chunks, chunks_metadata = [], []
-            for i, clip in enumerate(clip_timestamps):
-                audio_chunks.append(audio[clip["start"] : clip["end"]])
-                clip_duration = (clip["end"] - clip["start"]) / sampling_rate
-                if clip_duration > 30:
-                    model.logger.warning(
-                        "Segment %d is longer than 30 seconds, "
-                        "only the first 30 seconds will be transcribed",
-                        i,
+            with span("fwt.pipeline.chunks"):
+                audio_chunks, chunks_metadata = [], []
+                for i, clip in enumerate(clip_timestamps):
+                    audio_chunks.append(audio[clip["start"] : clip["end"]])
+                    clip_duration = (clip["end"] - clip["start"]) / sampling_rate
+                    if clip_duration > 30:
+                        model.logger.warning(
+                            "Segment %d is longer than 30 seconds, "
+                            "only the first 30 seconds will be transcribed",
+                            i,
+                        )
+                    chunks_metadata.append(
+                        {
+                            "offset": clip["start"] / sampling_rate,
+                            "duration": clip_duration,
+                            "segments": [clip],
+                        }
                     )
-                chunks_metadata.append(
-                    {
-                        "offset": clip["start"] / sampling_rate,
-                        "duration": clip_duration,
-                        "segments": [clip],
-                    }
-                )
 
         duration_after_vad = (
             sum((segment["end"] - segment["start"]) for segment in clip_timestamps)
@@ -1865,7 +1870,7 @@ class BatchedInferencePipeline:
         if duration_after_vad:
             if audio_dev is not None:
                 n_total = len(audio)  # numpy slicing clamps; match it
-                with phase_timer("assemble speech concat"):
+                with span("fwt.pipeline.chunks", phase="assemble speech concat"):
                     base_audio = assemble_segments(
                         audio_dev,
                         [(min(c["start"], n_total), min(c["end"], n_total)) for c in clip_timestamps],
@@ -2042,26 +2047,31 @@ class BatchedInferencePipeline:
                     bi + 1, len(starts), i + 1, min(i + batch_size, len(features)), len(features),
                 )
 
-            for result in results:
-                for segment in result:
-                    seg_idx += 1
-                    yield Segment(
-                        seek=segment["seek"],
-                        id=seg_idx,
-                        text=segment["text"],
-                        start=round(segment["start"], 3),
-                        end=round(segment["end"], 3),
-                        words=(
-                            [Word(**word) for word in segment["words"]]
-                            if options.word_timestamps
-                            else None
-                        ),
-                        tokens=segment["tokens"],
-                        avg_logprob=segment["avg_logprob"],
-                        no_speech_prob=segment["no_speech_prob"],
-                        compression_ratio=segment["compression_ratio"],
-                        temperature=options.temperatures[0],
-                    )
+            with span("fwt.pipeline.segments"):
+                batch_segments = []
+                for result in results:
+                    for segment in result:
+                        seg_idx += 1
+                        batch_segments.append(
+                            Segment(
+                                seek=segment["seek"],
+                                id=seg_idx,
+                                text=segment["text"],
+                                start=round(segment["start"], 3),
+                                end=round(segment["end"], 3),
+                                words=(
+                                    [Word(**word) for word in segment["words"]]
+                                    if options.word_timestamps
+                                    else None
+                                ),
+                                tokens=segment["tokens"],
+                                avg_logprob=segment["avg_logprob"],
+                                no_speech_prob=segment["no_speech_prob"],
+                                compression_ratio=segment["compression_ratio"],
+                                temperature=options.temperatures[0],
+                            )
+                        )
+            yield from batch_segments
 
         self.last_speech_timestamp = 0.0
 

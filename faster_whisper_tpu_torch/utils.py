@@ -1,5 +1,6 @@
 """Host-side helpers: the model registry and its local-cache lookup,
-timestamps, logging, phase stamps (``phase_timer``), device selection, the
+timestamps, logging, the spans and phase stamps (``span``, ``phase_timer``,
+re-exported from ``tracing``), device selection, the
 side streams of the speculative encode and the pipelined upload,
 the float32 scope of the feature paths and ``get_end`` of word
 timestamps."""
@@ -8,13 +9,13 @@ import contextlib
 import logging
 import os
 import re
-import sys
 import threading
-import time
 
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
+
+from faster_whisper_tpu_torch.tracing import phase_timer, span  # noqa: F401
 
 # Name -> Hugging Face repo of the CTranslate2 conversion, the registry of
 # faster-whisper.
@@ -118,47 +119,6 @@ def download_model(
 def get_logger():
     """Returns the module logger."""
     return logging.getLogger("faster_whisper_tpu_torch")
-
-
-_phase_t0 = None
-
-
-class phase_timer:
-    """Stamped phase logging for cold-start diagnosis, enabled with
-    FWT_PHASE_LOG=1.  Each ``with phase_timer("vad"):`` block prints one
-    line to stderr when it closes: its elapsed seconds and the offset
-    since the first phase of the process, so a run that is cut short
-    still shows where its time went.
-
-    The seconds are host time.  On the card, kernels run asynchronously:
-    a block that only launches work (``"encode dispatch"``) stamps the
-    launches, and a block that reads a result back (``"decode collect"``)
-    also waits for the work queued before it.  The block synchronizes
-    nothing itself, so timing changes nothing on the device path."""
-
-    __slots__ = ("name", "t0")
-
-    def __init__(self, name: str):
-        self.name = name
-
-    def __enter__(self):
-        global _phase_t0
-        self.t0 = time.perf_counter()
-        if _phase_t0 is None:
-            _phase_t0 = self.t0
-        return self
-
-    def __exit__(self, *exc):
-        if os.environ.get("FWT_PHASE_LOG", "0") == "0":
-            return False
-        t1 = time.perf_counter()
-        print(
-            f"# phase {self.name}: {t1 - self.t0:.2f}s"
-            f" (at +{t1 - _phase_t0:.1f}s)",
-            file=sys.stderr,
-            flush=True,
-        )
-        return False
 
 
 def resolve_device(device="cuda") -> torch.device:

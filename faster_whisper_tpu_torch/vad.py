@@ -28,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from faster_whisper_tpu_torch.utils import exact_float32, phase_timer, resolve_device, side_stream
+from faster_whisper_tpu_torch.utils import exact_float32, phase_timer, resolve_device, side_stream, span
 
 
 @dataclass
@@ -150,31 +150,32 @@ def get_speech_timestamps(
     the same decisions (``FWT_I16_TRANSFER=0``: neither, float32 end to
     end).  Under ``FWT_PIPELINED_VAD=1`` a numpy array takes
     the pipelined sliced upload (``upload_with_vad``), whose decisions
-    are the same.
+    are the same.  The whole call is the span ``fwt.vad``.
     """
-    if vad_options is None:
-        vad_options = VadOptions(**kwargs)
+    with span("fwt.vad"):
+        if vad_options is None:
+            vad_options = VadOptions(**kwargs)
 
-    window = 512
-    n_samples = len(audio)
-    # the reference pads to a whole window past the end, a full one when
-    # the length is already a multiple
-    expected_windows = n_samples // window + 1
-    if (
-        not torch.is_tensor(audio)
-        and n_samples
-        and os.environ.get("FWT_PIPELINED_VAD", "0") == "1"
-    ):
-        _, probs = upload_with_vad(audio, return_audio=False, device=device)
-        with phase_timer("vad probs pull"):
-            probs = probs[:expected_windows]
-    else:
-        if not torch.is_tensor(audio):
-            audio = torch.as_tensor(np.asarray(audio, np.float32), device=resolve_device(device))
-        padded = F.pad(audio.to(torch.float32), (0, expected_windows * window - n_samples))
-        with phase_timer("vad forward (compile+exec+probs pull)"):
-            probs = get_vad_model(audio.device)(padded).cpu().numpy()
-    return speech_timestamps_from_probs(probs, n_samples, vad_options, sampling_rate)
+        window = 512
+        n_samples = len(audio)
+        # the reference pads to a whole window past the end, a full one when
+        # the length is already a multiple
+        expected_windows = n_samples // window + 1
+        if (
+            not torch.is_tensor(audio)
+            and n_samples
+            and os.environ.get("FWT_PIPELINED_VAD", "0") == "1"
+        ):
+            _, probs = upload_with_vad(audio, return_audio=False, device=device)
+            with phase_timer("vad probs pull"):
+                probs = probs[:expected_windows]
+        else:
+            if not torch.is_tensor(audio):
+                audio = torch.as_tensor(np.asarray(audio, np.float32), device=resolve_device(device))
+            padded = F.pad(audio.to(torch.float32), (0, expected_windows * window - n_samples))
+            with phase_timer("vad forward (compile+exec+probs pull)"):
+                probs = get_vad_model(audio.device)(padded).cpu().numpy()
+        return speech_timestamps_from_probs(probs, n_samples, vad_options, sampling_rate)
 
 
 def speech_timestamps_from_probs(
