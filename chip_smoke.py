@@ -35,7 +35,12 @@ Phases, each printing its own line with its seconds:
    bit-equal; then the LayerNorm kernel (LN, ``csrc/layer_norm.cu``) in
    bf16 and float32 at a decode step's and an encode's rows and at other
    widths against its plain version, and a row's bits alone and inside
-   10, 16, 40 and 12000 rows, which must be equal;
+   10, 16, 40 and 12000 rows, which must be equal; then the W8A8 kernel
+   (``csrc/w8a8.cu``, ``int8_dense`` on the card) bit-equal to the
+   composition it replaced (``_quantize_rows``, ``torch._int_mm``,
+   ``_rescale``) at 1 to 12000 rows, every width of large-v3's products
+   and its padded logits head, bf16 and float32 inputs and outputs, with
+   and without a bias, a zero row and 4-bit-range codes;
 4. times: each kernel form, its plain version and, where one exists, the
    one PyTorch call that computes the same function, on the card (CUDA
    events around the replay of a CUDA graph of 20 calls, L2 warm), each
@@ -47,8 +52,10 @@ Phases, each printing its own line with its seconds:
    columns) against the chunks that the earlier plans chose from B x H
    and the SM count, at B=1 and B=8 with 20 heads and B=8 with 10, in
    turns, and a sweep of widths at B=8; LN at a decode step's 40 x 1280
-   and an encode's 12000 x 1280 beside ``F.layer_norm``; and an empty
-   kernel timed the same ways, the launch floor;
+   and an encode's 12000 x 1280 beside ``F.layer_norm``; the W8A8 kernel
+   at a decode step's four shapes (batch 8 x 5 beams) and an encode's
+   mlp.w1 beside the composition it replaced; and an empty kernel timed
+   the same ways, the launch floor;
 5. VAD: ``docker/jfk.flac`` decoded by the port's ``decode_audio`` and
    tiled to 5 minutes; the Silero VAD's probabilities and speech
    timestamps on the card against the same weights on the CPU, and its
@@ -71,7 +78,9 @@ Phases, each printing its own line with its seconds:
    batch of chunks) 32 of K3 in the run's activation type, and no launch
    of any other form; LN 2 x 32 + 1 times per encode and 3 x 4 + 1 per
    decoder forward (decode step, prefill, alignment pass), per device of
-   a model-axis group (``expected_layer_norms``); then (7b) request i's
+   a model-axis group (``expected_layer_norms``); the W8A8 kernel in the
+   int8 and int4 runs and in no other (request o, in groups: the
+   encoder's 6 products a layer only); then (7b) request i's
    last two chunks, the pipeline's batch of 2, again inside a batch of 8,
    compared stage by stage (the log-mel, the conv stem, each encoder
    layer, the encoder's output, the cross K/V codes, the prefill's and
@@ -791,6 +800,125 @@ def time_empty():
 
 
 # ---------------------------------------------------------------------------
+# W8A8: the int8 product of int8_dense
+# ---------------------------------------------------------------------------
+
+W8A8_REPLACES = "faster_whisper_tpu/ops/quant.py::int8_dense (XLA, no TPU kernel)"
+# Rows: the sequential path's beams (5), a batch of 8 x 5 beams (40), the
+# edges of the plans (1, 17), an encode window (1500) and a batch of 8
+# windows (12000).  (K, N): every width of large-v3's products, the logits
+# head padded to 51872 columns, a row-parallel shard of a 128-wide model
+# (64, 128) and a ragged contraction tile (1040, 136).
+W8A8_ROWS = (1, 5, 17, 40, 1500, 12000)
+W8A8_WIDTHS = ((1280, 1280), (1280, 5120), (5120, 1280), (5120, 5120), (1280, 51872), (5120, 51872),
+               (64, 128), (1040, 136))
+# (x's dtype, the output's, the bias's or None, qmax of the codes): the
+# bf16 model's products, its logits head (float32 scores, no bias), the
+# int8_float32 model's, and int4's per-channel decoder codes (qmax 7).
+W8A8_VARIANTS = (
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16, 127),
+    (torch.bfloat16, torch.float32, None, 127),
+    (torch.float32, torch.float32, torch.float32, 127),
+    (torch.bfloat16, torch.bfloat16, None, 7),
+)
+# The main path's products, timed in phase 4: a decode step's at batch 8 x
+# 5 beams (attention, mlp.w2, mlp.w1, the logits head) and an encode's mlp.w1.
+W8A8_TIMED = ((40, 1280, 1280), (40, 5120, 1280), (40, 1280, 5120), (40, 1280, 51872), (12000, 1280, 5120))
+
+
+def w8a8_inputs(m, k, n, x_dtype=torch.bfloat16, bias_dtype=torch.bfloat16, qmax=127, seed=0):
+    """x (m, k) in ``x_dtype`` with row m // 2 all zeros (its scale takes the
+    1e-10 floor) where m > 1; a (k, n) weight quantized on the card at
+    ``qmax`` (``card_layout``); a bias (n,) in ``bias_dtype`` or None."""
+    from faster_whisper_tpu_torch.ops.quant import quantize_weight
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device="cuda").to(x_dtype)
+    if m > 1:
+        x[m // 2] = 0
+    w = quantize_weight(0.02 * torch.randn((k, n), generator=g, device="cuda"), qmax=qmax)
+    b = None if bias_dtype is None else torch.randn((n,), generator=g, device="cuda").to(bias_dtype)
+    return x, w, b
+
+
+def w8a8_composition(x, w, b, out_dtype):
+    """The card's product before the kernel: ``_quantize_rows``,
+    ``torch._int_mm`` (through ``_int_mm``, its rows padded, on the codes'
+    (in, out)-contiguous copy) and ``_rescale``."""
+    from faster_whisper_tpu_torch.ops.quant import QuantizedLinear, _int8_product, _quantize_rows, _rescale
+
+    xf = x.float()
+    xq, sx = _quantize_rows(xf, xf.abs().amax(dim=-1, keepdim=True))
+    wn = QuantizedLinear(w.q.contiguous(), w.s)
+    return _rescale(_int8_product(xq, wn), sx, wn, b, out_dtype)
+
+
+def check_w8a8(rows=W8A8_ROWS, widths=W8A8_WIDTHS, variants=W8A8_VARIANTS):
+    """The W8A8 kernel (``int8_dense`` on the card, ``csrc/w8a8.cu``)
+    against the composition it replaced, ``torch.equal`` at every row
+    count of ``rows``, width of ``widths`` and form of ``variants``, one
+    launch counted per call; and at each row count ``int8_dense_many`` on
+    three weights (one quantization of x) against three calls; returns the
+    number of products held."""
+    from faster_whisper_tpu_torch.ops.quant import _plan, int8_dense, int8_dense_many
+
+    n_held, plans = 0, set()
+    for m in rows:
+        for k, n in widths:
+            for i, (x_dtype, out_dtype, bias_dtype, qmax) in enumerate(variants):
+                x, w, b = w8a8_inputs(m, k, n, x_dtype, bias_dtype, qmax, seed=m + k + n + i)
+                before = int8_dense.launches
+                got = int8_dense(x, w, b, out_dtype=out_dtype)
+                want = w8a8_composition(x, w, b, out_dtype)
+                torch.cuda.synchronize()
+                what = (f"W8A8 {m} x {k} @ {k} x {n}, x {dtype_name(x_dtype)}, out {dtype_name(out_dtype)}, "
+                        f"bias {'none' if b is None else dtype_name(bias_dtype)}, qmax {qmax}")
+                if int8_dense.launches != before + 1:
+                    raise AssertionError(f"{what}: {int8_dense.launches - before} launches counted, not 1")
+                if got.dtype != out_dtype or not torch.equal(got, want):
+                    differ = int((got != want).sum()) if got.shape == want.shape else -1
+                    raise AssertionError(f"{what}: {differ} of {want.numel()} values differ from the composition")
+                plans.add(_plan(m))
+                n_held += 1
+                del x, w, b, got, want
+        # one quantization of x for three weights (q, k, v), as the model's
+        # int8_dense_many runs it, equal to three calls
+        k, n = widths[0]
+        x, w, b = w8a8_inputs(m, k, n, seed=m + 7)
+        ws = [w, w8a8_inputs(1, k, n, seed=m + 8)[1], w8a8_inputs(1, k, n, seed=m + 9)[1]]
+        before = int8_dense.launches
+        many = int8_dense_many(x, ws, (b, None, b))
+        if int8_dense.launches != before + 3 or not all(
+                torch.equal(y, int8_dense(x, wi, bi)) for y, wi, bi in zip(many, ws, (b, None, b))):
+            raise AssertionError(f"W8A8 {m} x {k}: one quantization for three weights differs from three calls")
+        n_held += 3
+    torch.cuda.empty_cache()
+    print(f"W8A8: {n_held} products bit-equal to the composition (_quantize_rows, torch._int_mm, _rescale) "
+          f"over {len(plans)} plans (swap, bn): " + ", ".join(str(p) for p in sorted(plans)))
+    return n_held
+
+
+def time_w8a8(m, k, n):
+    """The W8A8 kernel on a bf16 x (m, k) and a (k, n) weight with a bf16
+    bias (float32 scores and no bias for the logits head's n > 5120), the
+    composition it replaced as both the plain version and the library
+    call; bound: the weight's codes, x, the output and the scales moved
+    once, beside 2 m k n int8 operations."""
+    from faster_whisper_tpu_torch.ops.quant import _plan, int8_dense
+
+    head = n > 5120
+    out_dtype = torch.float32 if head else torch.bfloat16
+    x, w, b = w8a8_inputs(m, k, n, bias_dtype=None if head else torch.bfloat16, seed=7)
+    t = _timed(lambda: int8_dense(x, w, b, out_dtype=out_dtype),
+               lambda: w8a8_composition(x, w, b, out_dtype), lambda: w8a8_composition(x, w, b, out_dtype))
+    nbytes = k * n + 2 * m * k + m * n * (4 if head else 2) + 4 * n + (0 if head else 2 * n)
+    t["bound_ms"], t["bound_by"] = bound(nbytes, 2 * m * k * n, INT8_TENSOR_OPS)
+    t["shape"] = f"{m} x {k} @ {k} x {n}, {dtype_name(out_dtype)} out, plan (swap, bn) {_plan(m)}"
+    return t
+
+
+# ---------------------------------------------------------------------------
 # K3: encoder flash attention
 # ---------------------------------------------------------------------------
 
@@ -1112,10 +1240,12 @@ def _counted():
     from faster_whisper_tpu_torch.ops.cross_attention import cross_attend
     from faster_whisper_tpu_torch.ops.layer_norm import layer_norm
     from faster_whisper_tpu_torch.ops.probes import attend_only, scores_batched, scores_perhead
+    from faster_whisper_tpu_torch.ops.quant import int8_dense
 
     # name -> (function, attribute); every name but those of FORWARDS is a
-    # kernel's launch count
+    # kernel's launch count (w8a8: one per product, its two launches)
     return dict(
+        w8a8=(int8_dense, "launches"),
         p1=(attend_only, "launches"), p2b=(scores_batched, "launches"),
         p2h=(scores_perhead, "launches"), ln=(layer_norm, "launches"),
         k1=(beam_attend_append, "launches"), k1_f32=(beam_attend_append, "launches_f32"),
@@ -1196,15 +1326,21 @@ def check_counts(counts, per_step, per_encode, cfg, shards=1, layout=(1, 1)):
     decode step, ``per_encode`` n_audio_layer times per encode, on each of
     ``shards`` shards of a model-axis group, every other form never; the
     LayerNorm kernel as ``expected_layer_norms`` counts for the group's
-    ``layout`` (``ln_layout``)."""
+    ``layout`` (``ln_layout``); the W8A8 kernel in every run whose decode
+    runs K2 (the int8 and int4 compute types: their encoders' weights at
+    least have per-channel scales), in no other."""
     if counts["steps"] == 0 or counts["encodes"] == 0:
         raise AssertionError(f"the run decoded or encoded nothing: {counts}")
     want = expected_layer_norms(counts, cfg, layout)
     if counts["ln"] != want or not want:
         raise AssertionError(f"layer_norm launches {counts['ln']} != {want} from the run's forwards "
                              f"{ {k: counts[k] for k in FORWARDS} } at {layout} (devices, logit shards)")
+    int8 = any(form in per_step for form in ("k2", "k2_f32"))
+    if (counts["w8a8"] > 0) != int8:
+        raise AssertionError(f"W8A8 launches {counts['w8a8']} in a run {'with' if int8 else 'without'} "
+                             f"int8 weights")
     for name, n in counts.items():
-        if name in FORWARDS or name == "ln":
+        if name in FORWARDS or name in ("ln", "w8a8"):
             continue
         if name in per_step:
             want = shards * cfg.n_text_layer * counts["steps"]
@@ -1295,8 +1431,14 @@ def run_main_path(speech):
               f"[{int(w2.q.min())}, {int(w2.q.max())}], scales {tuple(w2.s.shape)}")
         runs[key] = run_batched(model, f"{key}: int4, int4_group_size={group}", speech, cfg)[0]
         check_counts(runs[key], per_step=("k2", "k4_int8"), per_encode="k3", cfg=cfg)
-        print(f"request {key} against request i: equal launch counts: {runs[key] == runs['i']}")
-        if runs[key] != runs["i"]:
+        # in groups the decoder's products keep the composition: only the
+        # encoder's 6 a layer reach the W8A8 kernel
+        w8a8 = runs["i"]["w8a8"] if group is None else 6 * cfg.n_audio_layer * runs[key]["encodes"]
+        same = {k: v for k, v in runs[key].items() if k != "w8a8"} == {
+            k: v for k, v in runs["i"].items() if k != "w8a8"}
+        print(f"request {key} against request i: equal launch counts: {same}; W8A8 {runs[key]['w8a8']} "
+              f"(i's {runs['i']['w8a8']}, expected {w8a8})")
+        if not same or runs[key]["w8a8"] != w8a8:
             raise AssertionError(f"request {key}'s launch counts {runs[key]} differ from i's {runs['i']}")
     del model
     torch.cuda.empty_cache()
@@ -1323,8 +1465,8 @@ def _encoder_stages(params, cfg, mel):
 # _gen_decoder_step``) whose outputs DecodeProbe records, op by op: the
 # LayerNorms, the projections, K1/K2, K4, the output projections, the
 # MLP, the residual adds and the logits.
-STEP_OPS = ("_norm", "_dense", "beam_attend_append", "cross_attend", "_out", "_mlp", "_residual",
-            "_logits")
+STEP_OPS = ("_norm", "_dense_many", "_dense", "beam_attend_append", "cross_attend", "_out", "_mlp",
+            "_residual", "_logits")
 
 
 class DecodeProbe:
@@ -2054,8 +2196,9 @@ class AlignmentProbe:
     """Records the word alignment while a request runs: each alignment
     pass's device seconds (CUDA events around it) and the launch counts
     just before and just after it, which must be equal but for the pass's
-    own count and its 3 x n_text_layer + 1 LayerNorms (the pass launches no
-    kernel of K1-K4 and runs no encode); each window's text tokens and
+    own count, its 3 x n_text_layer + 1 LayerNorms and its int8 products
+    (the pass launches no kernel of K1-K4 and runs no encode); each
+    window's text tokens and
     its word dicts (with their tokens); and each DTW cost matrix,
     its path and the native DTW's host milliseconds."""
 
@@ -2079,7 +2222,7 @@ class AlignmentProbe:
             self.events.append((start, end))
             after = read_counts()
             delta = {k: after[k] - before[k] for k in after}
-            if any(delta[k] for k in after if k not in ("ln", "aligns")) or delta["aligns"] != 1:
+            if any(delta[k] for k in after if k not in ("ln", "aligns", "w8a8")) or delta["aligns"] != 1:
                 raise AssertionError(f"the alignment pass launched a kernel or an encode: {before} "
                                      f"-> {after}")
             want = 3 * model.model.config.n_text_layer * ln_layout(model)[0] + 1
@@ -2289,11 +2432,12 @@ def run_word_timestamps(later, jfk, speech, speech_chunks, i_counts, card):
     probe.check_dtw("m", card)
     want = [(s.seek, s.text, s.tokens) for s in later["i_segments"]]
     got = [(s.seek, s.text, s.tokens) for s in segments]
-    # the alignment passes add their own count and LayerNorms, nothing else
-    same = {k: v for k, v in counts["m"].items() if k not in ("ln", "aligns")} == {
-        k: v for k, v in i_counts.items() if k not in ("ln", "aligns")}
+    # the alignment passes add their own count, LayerNorms and W8A8
+    # products, nothing else
+    same = {k: v for k, v in counts["m"].items() if k not in ("ln", "aligns", "w8a8")} == {
+        k: v for k, v in i_counts.items() if k not in ("ln", "aligns", "w8a8")}
     print(f"request m against request i: equal segment tokens and texts: {got == want}; equal "
-          f"launch counts but the alignment passes' LayerNorms: {same}")
+          f"launch counts but the alignment passes' LayerNorms and products: {same}")
     if got != want:
         raise AssertionError("request m's segment tokens or texts differ from request i's")
     if not same:
@@ -3595,10 +3739,11 @@ def check_tp_kernels(card):
     return errs
 
 
-def _one_step_logits(model, xa, tok0):
+def _one_step_logits(model, xa, tok0, before_step=None):
     """One prefill of 4 start tokens and one beam decode step (K=5, a table
     of 64) over the encoder states ``xa`` with the tokens ``tok0`` (B,):
-    the step's logits (B, K, V) on the lead."""
+    the step's logits (B, K, V) on the lead.  ``before_step()`` is called
+    just before the step, if given."""
     from faster_whisper_tpu_torch.generation import generate as G
     from faster_whisper_tpu_torch.models import model as M
 
@@ -3612,6 +3757,8 @@ def _one_step_logits(model, xa, tok0):
     tok = tok0[:, None].expand(b, K).contiguous()
     pos = torch.full((b, K), P, dtype=torch.long, device="cuda")
     anc = torch.arange(K, dtype=torch.int32, device="cuda")[None, :, None].expand(b, K, ctx).contiguous()
+    if before_step is not None:
+        before_step()
     logits, _, _ = G._gen_decoder_step(params, eng.config, tok, pos, pos[:, 0].int(), sk, sv, ck, cv, anc)
     return logits
 
@@ -4033,6 +4180,8 @@ def main():
     print(f"K1/K2/K4: {check_batch_invariance()} holds of a row alone and as a head slice against "
           f"its batch, all bit-equal")
     errs.update(check_layer_norm())
+    check_w8a8()
+    errs["W8A8"] = 0.0  # bit-equal to the composition, or check_w8a8 raised
     phase("kernels against plain versions", t0)
 
     t0 = time.perf_counter()
@@ -4069,6 +4218,10 @@ def main():
                             ("LN f32", 40, f32), ("LN f32 encode", 12000, f32)):
         times[label] = time_layer_norm(m, dtype=dtype)
         print_times(label, times[label], card)
+    for m, k, n in W8A8_TIMED:
+        t = time_w8a8(m, k, n)
+        times.setdefault("W8A8", t)  # the table's: a decode step's attention product
+        print_times("W8A8", t, card)
     floor = time_empty()
     print(f"launch floor: an empty kernel {floor['ms']:.4f} ms warm (a graph of 20 calls), "
           f"{floor['cold_ms']:.4f} ms L2 cold, {floor['call_ms']:.4f} ms per call from the host; "
@@ -4194,6 +4347,8 @@ def main():
         entry("layer_norm bf16 and f32 (LN; times at a decode step's 40 x 1280 bf16)", "LN",
               "layer_norm.cu", LN_REPLACES,
               sum(c["ln"] for c in runs.values()) + late_sum("ln")),
+        entry("int8_dense W8A8 (times at a decode step's 40 x 1280 @ 1280 x 1280)", "W8A8", "w8a8.cu",
+              W8A8_REPLACES, sum(c["w8a8"] for c in runs.values()) + late_sum("w8a8")),
     ]
     print(f"[phase] total: {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": kernels}))

@@ -71,6 +71,7 @@ from faster_whisper_tpu_torch.generation.processors import (
 from faster_whisper_tpu_torch.models.config import WhisperConfig
 from faster_whisper_tpu_torch.models.model import (
     _dense,
+    _dense_many,
     _layers,
     _logits,
     _mlp,
@@ -185,12 +186,13 @@ def _gen_decoder_step(
         attn = []
         for j, (h, p) in enumerate(zip(hs, ps)):
             sa = p["self_attn"]
+            q, k_new, v_new = _dense_many(h, (sa["wq"], sa["wk"], sa["wv"]), (sa["bq"], None, sa["bv"]))
             a, sk[j], sv[j] = beam_attend_append(
                 i,
                 rows[j],
-                heads(_dense(h, sa["wq"], sa["bq"])),
-                heads(_dense(h, sa["wk"])),
-                heads(_dense(h, sa["wv"], sa["bv"])),
+                heads(q),
+                heads(k_new),
+                heads(v_new),
                 sk[j],
                 sv[j],
                 ancs[j],

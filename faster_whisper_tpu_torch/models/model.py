@@ -34,7 +34,7 @@ from faster_whisper_tpu_torch.models.config import WhisperConfig
 from faster_whisper_tpu_torch.ops import _build
 from faster_whisper_tpu_torch.ops.attention import mha_full, mha_hmajor
 from faster_whisper_tpu_torch.ops.layer_norm import layer_norm
-from faster_whisper_tpu_torch.ops.quant import QuantizedLinear, int8_dense, int8_dense_rows
+from faster_whisper_tpu_torch.ops.quant import QuantizedLinear, int8_dense, int8_dense_many, int8_dense_rows
 from faster_whisper_tpu_torch.parallel import collectives
 from faster_whisper_tpu_torch.parallel.mesh import ShardedParams
 
@@ -46,6 +46,14 @@ def _dense(x, w, b=None):
     if b is not None:
         y = y + b
     return y
+
+
+def _dense_many(x, ws, bs):
+    """``_dense`` of one x by several weights; int8 weights share x's row
+    quantization (``int8_dense_many``)."""
+    if isinstance(ws[0], QuantizedLinear):
+        return int8_dense_many(x, ws, bs)
+    return [_dense(x, w, b) for w, b in zip(ws, bs)]
 
 
 def _split_heads(x, n_head):
@@ -86,8 +94,10 @@ def _row_dense(group, xs, ws, bs):
     """A row-parallel product: the sum over the shards of ``xs[i] @
     ws[i]`` (one all-reduce) plus the replicated bias, on every shard.  An
     int8 weight goes through ``int8_dense_rows``, whose int32 sum is
-    exact."""
+    exact, or through ``int8_dense`` in a group of one shard."""
     if isinstance(ws[0], QuantizedLinear):
+        if group.size == 1:
+            return [int8_dense(xs[0], ws[0], bs[0])]
         return int8_dense_rows(xs, ws, bs, group)
     ys = group.all_reduce_sum([torch.matmul(x, w) for x, w in zip(xs, ws)])
     return group.replicated(torch.add, ys, bs)
@@ -104,10 +114,8 @@ def _norm(group, xs, ps, g: str, b: str):
 
 def _attn_qkv(p, x, n_head):
     """Project q/k/v for self-attention on x."""
-    q = _split_heads(_dense(x, p["wq"], p["bq"]), n_head)
-    k = _split_heads(_dense(x, p["wk"]), n_head)  # Whisper: no k bias
-    v = _split_heads(_dense(x, p["wv"], p["bv"]), n_head)
-    return q, k, v
+    qkv = _dense_many(x, (p["wq"], p["wk"], p["wv"]), (p["bq"], None, p["bv"]))  # Whisper: no k bias
+    return tuple(_split_heads(y, n_head) for y in qkv)
 
 
 def _out(group, attn, ps, name):
@@ -238,8 +246,9 @@ def _init_shard_cache(tree, config: WhisperConfig, xa: torch.Tensor, ctx: int, n
     cross_k, cross_v = [], []
     for i in range(L):
         p = _layer(dec["layers"]["cross_attn"], i)
-        cross_k.append(_split_heads(_dense(xa, p["wk"]), n_head).transpose(1, 2))
-        cross_v.append(_split_heads(_dense(xa, p["wv"], p["bv"]), n_head).transpose(1, 2))
+        k, v = _dense_many(xa, (p["wk"], p["wv"]), (None, p["bv"]))
+        cross_k.append(_split_heads(k, n_head).transpose(1, 2))
+        cross_v.append(_split_heads(v, n_head).transpose(1, 2))
     zeros = torch.zeros((L, b, n_head, ctx, dh), dtype=dtype, device=xa.device)
     return KVCache(
         self_k=zeros,

@@ -6,7 +6,8 @@ after a hash of the source and the compiler and link flags: an unchanged
 source is built once and then reused.  The CUDA kernels (``.cu``) are
 built with ``nvcc`` (``probes.cu`` holds the kernels of the probe entry
 point ``ops/probes.py``, ``layer_norm.cu`` the port's LayerNorm and an
-empty kernel, the launch floor that ``chip_smoke.py`` times); the host
+empty kernel, the launch floor that ``chip_smoke.py`` times, ``w8a8.cu``
+the W8A8 product of ``ops/quant.py::int8_dense``); the host
 libraries (``.cpp``: the FLAC decoder, the DTW of word timestamps, the
 VAD's state machine and the media decoder) with the host ``g++``.  A source may link system libraries (``LINK_FLAGS``:
 the media decoder links FFmpeg's).
@@ -70,6 +71,9 @@ SIGNATURES = {
         "fwt_layer_norm_bf16": [_P] * 4 + [_I, _I, _L, _F, _P],
         "fwt_layer_norm_f32": [_P] * 4 + [_I, _I, _L, _F, _P],
         "fwt_empty": [_P],
+    },
+    "w8a8.cu": {
+        "fwt_w8a8_dense": [_P, _I, _L, _I, _I, _P, _L, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _P],
     },
     "probes.cu": {
         "fwt_attend_only_int8": [_P] * 10 + [_I] * 6 + [_F, _P],
@@ -202,9 +206,16 @@ def launch(device: torch.device, fn, *args) -> int:
     """``fn(*args, stream)``, a library's launcher, on ``device``'s current
     stream with ``device`` the current device: the launcher's stream
     handle (0 for a default stream) and its runtime calls name the current
-    device, which in a new host thread is card 0."""
+    device, which in a new host thread is card 0.  It reads the raw stream
+    handle, and enters the device guard only where ``device`` is not
+    current: on an H100's host the public ``torch.cuda.current_stream(
+    device).cuda_stream`` and the guard cost 7.0 and 4.4 us a call, against
+    5.1 us for a launch itself."""
+    index = device.index
+    if torch.cuda.current_device() == index:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
     with torch.cuda.device(device):
-        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def check(rc: int, what: str) -> None:

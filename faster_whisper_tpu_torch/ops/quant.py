@@ -7,11 +7,20 @@ Counterpart of ``faster_whisper_tpu/ops/quant.py``:
     4-bit range (codes in [-7, 7], kept in int8 storage), per output
     channel or with one scale per group of ``group_size`` input rows;
   * activations: dynamic symmetric per-row int8 at matmul time;
-  * the product is int8 x int8 -> int32 (``torch._int_mm``; the JAX
-    package leaves the same product to XLA, outside any Pallas kernel),
-    rescaled in float32; with group scales, one product per group of
-    input rows, each partial times its own scales, summed over the groups
-    in float32.
+  * the product is int8 x int8 -> int32, rescaled in float32 (the JAX
+    package leaves it to XLA, outside any Pallas kernel); with group
+    scales, one product per group of input rows, each partial times its
+    own scales, summed over the groups in float32.
+
+On the card, a weight with per-channel scales takes the hand-written
+kernel of ``csrc/w8a8.cu`` (``int8_dense``, counted in
+``int8_dense.launches``): the row quantization, then the int8 product on
+``wgmma`` with the rescale in its epilogue, two launches that give the
+bits of the PyTorch composition ``_quantize_rows``, ``_int_mm``,
+``_rescale``.  Its codes are laid out for it when they are made on the
+card (``card_layout``).  ``torch._int_mm`` remains only on the
+group-scale path (``_int8_product``) and the tensor-parallel one
+(``int8_dense_rows``); the CPU runs the composition, the plain version.
 
 Rounding is half to even (``torch.round``, as ``jnp.round``) and every
 float32 operation runs in the JAX package's order, so codes and scales
@@ -28,6 +37,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from faster_whisper_tpu_torch.ops import _build
 from faster_whisper_tpu_torch.tracing import span
 
 # torch._int_mm on a CUDA tensor wants more than 16 rows and a contraction
@@ -40,6 +50,13 @@ _INT_MM_MIN_ROWS = 17
 _INT_MM_ALIGN = 8
 _SHORT_K = 128
 _SHORT_K_ROW_ALIGN = 32
+
+# csrc/w8a8.cu: the widths it takes (TMA rows 16-byte aligned, columns
+# stored in pairs) and the rows up to which it swaps its operands.
+_K_ALIGN = 16
+_N_ALIGN = 8
+_SMALL_M = 64
+_DTYPES = {torch.bfloat16: 0, torch.float32: 1}  # x's or y's dtype -> the kernel's f32 flag
 
 
 class QuantizedLinear(NamedTuple):
@@ -72,7 +89,7 @@ def quantize_weight(
         amax = wf.abs().amax(dim=axis, keepdim=True)
         scale = torch.clamp(amax * (1.0 / qmax), min=1e-10)
         q = torch.clamp(torch.round(wf / scale), -qmax, qmax).to(torch.int8)
-        return QuantizedLinear(q=q, s=scale.squeeze(axis))
+        return card_layout(QuantizedLinear(q=q, s=scale.squeeze(axis)))
 
     if axis not in (-2, wf.dim() - 2):
         raise ValueError("quantize_weight: group-wise scales assume an (..., in, out) weight")
@@ -84,6 +101,31 @@ def quantize_weight(
     scale = torch.clamp(amax * (1.0 / qmax), min=1e-10)
     q = torch.clamp(torch.round(wg / scale), -qmax, qmax).to(torch.int8)
     return QuantizedLinear(q=q.reshape(wf.shape), s=scale.squeeze(-2))
+
+
+def card_layout(w: QuantizedLinear) -> QuantizedLinear:
+    """``w`` as the card's kernel reads it: per-channel codes on a CUDA
+    device as the (..., in, out) view of (..., out, in)-contiguous memory
+    (``csrc/w8a8.cu``: s8 ``wgmma`` reads its operands K-major only), a
+    copy where they are not so already.  Group-scale and host weights come
+    back unchanged.  ``quantize_weight`` calls it; so does whatever slices
+    codes on the card (``parallel/mesh.py::shard_params``)."""
+    q = w.q
+    if not q.is_cuda or w.s.dim() == q.dim() or q.stride(-2) == 1:
+        return w
+    return QuantizedLinear(q.mT.contiguous().mT, w.s)
+
+
+def _plan(m: int) -> tuple:
+    """(swap, bn): how ``csrc/w8a8.cu`` tiles a product of ``m`` rows, from
+    the row count alone.  Up to 64 rows the weight is wgmma's 64-row A
+    operand and x's rows a B operand of ``bn`` = 16, 32 or 64 columns (the
+    weight streams, x rides along); above, 128-row tiles of x against 128
+    weight rows.  Both give the same bits (an int32 sum in any order, a
+    rescale per element)."""
+    if m > _SMALL_M:
+        return 0, 128
+    return 1, 16 if m <= 16 else 32 if m <= 32 else 64
 
 
 def _int_mm_rows(m: int, k: int) -> int:
@@ -164,11 +206,97 @@ def int8_dense(
     take one product per group of input rows (``torch._int_mm`` into one
     int32 buffer of the groups' partials); each partial is rescaled by its own
     scales and the groups summed in float32, then rescaled by the rows'.
-    The call is the span ``fwt.int8_dense``."""
-    with span("fwt.int8_dense"):
-        xf = x.float()
-        xq, sx = _quantize_rows(xf, xf.abs().amax(dim=-1, keepdim=True))
-        return _rescale(_int8_product(xq, w), sx, w, b, out_dtype or x.dtype)
+    On a CUDA tensor with per-channel scales: the kernel of
+    ``csrc/w8a8.cu`` (``_w8a8``), bit-equal to the composition below and
+    counted in ``int8_dense.launches``; it raises on what it does not
+    take.  Group scales on the card, and every CPU tensor, take the
+    composition.  The call is the span ``fwt.int8_dense``."""
+    return int8_dense_many(x, (w,), (b,), out_dtype)[0]
+
+
+def int8_dense_many(x: torch.Tensor, ws, bs, out_dtype=None) -> list:
+    """``[int8_dense(x, w, b) for w, b in zip(ws, bs)]``, the same bits: on
+    the card, with per-channel scales, x's rows are quantized once for all
+    the weights (the self-attention's q, k and v; the cross-attention's k
+    and v).  Each product is a span ``fwt.int8_dense``."""
+    out_dtype = out_dtype or x.dtype
+    if x.is_cuda and all(w.s.dim() != w.q.dim() for w in ws):
+        return _w8a8(x, ws, bs, out_dtype)
+    outs = []
+    for w, b in zip(ws, bs):
+        with span("fwt.int8_dense"):
+            xf = x.float()
+            xq, sx = _quantize_rows(xf, xf.abs().amax(dim=-1, keepdim=True))
+            outs.append(_rescale(_int8_product(xq, w), sx, w, b, out_dtype))
+    return outs
+
+
+int8_dense.launches = 0  # csrc/w8a8.cu: one per product (its one or two launches)
+
+
+def _w8a8(x: torch.Tensor, ws, bs, out_dtype) -> list:
+    """``int8_dense_many`` on the card for per-channel scales: x (..., K)
+    bfloat16 or float32 with a contiguous last axis and 16-byte aligned
+    rows; each w.q (K, N) int8 in ``card_layout`` (16-byte aligned), w.s
+    (N,) float32; each b None or (N,) bfloat16 or float32; ``out_dtype``
+    bfloat16 or float32; K a multiple of 16, N of 8; all on x's device.
+    Anything else raises.  The host's cost per call is most of a decode
+    step's, so each property is read once."""
+    dev, k = x.device, x.shape[-1]
+    x_f32, out_f32 = _DTYPES.get(x.dtype), _DTYPES.get(out_dtype)
+    if x_f32 is None or out_f32 is None:
+        raise TypeError(f"int8_dense: x {x.dtype} and out {out_dtype}, the kernel takes bfloat16 or float32")
+    if k % _K_ALIGN:
+        raise ValueError(f"int8_dense: x's width {k}, the kernel takes a multiple of {_K_ALIGN}")
+    m = x.numel() // k
+    if x.is_contiguous():
+        rows, ldx = x, k
+    else:  # a view where the leading axes flatten to one stride, else a copy
+        rows = x.reshape(-1, k)
+        ldx = rows.stride(0) if m > 1 else k
+        if rows.stride(1) != 1:
+            raise ValueError("int8_dense: the last axis of x must be contiguous")
+    if (ldx << (1 + x_f32)) % 16 or rows.data_ptr() % 16:
+        raise ValueError("int8_dense: x's rows must be 16-byte aligned")
+    # x's codes, then their scales 16-byte aligned (csrc/w8a8.cu)
+    scratch = torch.empty(-(-m * k // 16) * 16 + 4 * m, dtype=torch.uint8, device=dev)
+    outs = []
+    for w, b in zip(ws, bs):
+        with span("fwt.int8_dense"):
+            q, s = w.q, w.s
+            if q.dtype != torch.int8 or s.dtype != torch.float32 or q.dim() != 2:
+                raise TypeError(f"int8_dense: codes {q.dtype} {tuple(q.shape)} and scales {s.dtype}, the "
+                                "kernel takes (K, N) int8 and (N,) float32")
+            n = q.shape[1]
+            if s.shape != (n,) or q.shape[0] != k:
+                raise ValueError(f"int8_dense: x {tuple(x.shape)}, codes {tuple(q.shape)}, scales "
+                                 f"{tuple(s.shape)}")
+            if n % _N_ALIGN:
+                raise ValueError(f"int8_dense: width {n}, the kernel takes a multiple of {_N_ALIGN}")
+            one, ldw = q.stride()
+            if one != 1 or ldw % 16 or ldw < k or q.data_ptr() % 16:
+                raise ValueError("int8_dense: the codes must be K-major and 16-byte aligned "
+                                 "(ops.quant.card_layout)")
+            bias_kind = 0
+            if b is not None:
+                bias_kind = 1 + _DTYPES.get(b.dtype, -9)
+                if bias_kind < 1 or b.shape != (n,) or b.stride(0) != 1 or b.device != dev:
+                    raise ValueError(f"int8_dense: bias {b.dtype} {tuple(b.shape)} on {b.device}, the kernel "
+                                     "takes (N,) bfloat16 or float32 on x's device")
+            if q.device != dev or s.device != dev or s.stride(0) != 1:
+                raise ValueError(f"int8_dense: codes on {q.device} and scales on {s.device} (contiguous), "
+                                 f"x on {dev}")
+            out = torch.empty((*x.shape[:-1], n), dtype=out_dtype, device=dev)
+            if m:
+                rc = _build.launch(
+                    dev, _build.load("w8a8.cu").fwt_w8a8_dense, rows.data_ptr(), x_f32, ldx, m, k,
+                    q.data_ptr(), ldw, n, s.data_ptr(), None if b is None else b.data_ptr(), bias_kind,
+                    out.data_ptr(), out_f32, scratch.data_ptr(), int(not outs), *_plan(m),
+                )
+                _build.check(rc, "int8_dense")
+                _build.count(int8_dense)
+            outs.append(out)
+    return outs
 
 
 def int8_dense_rows(xs, ws, bs, group, out_dtype=None) -> list:

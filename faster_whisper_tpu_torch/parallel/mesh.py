@@ -194,7 +194,7 @@ def _head_slice(lw, vocab: int, i: int, n: int, device):
     """Shard ``i`` of the int8 head, vocab-sharded: the columns [i V/n,
     (i+1) V/n) of the vocabulary, zero-padded to a multiple of 8 as the
     whole head is (``ops/quant.py::_quantize_params``)."""
-    from faster_whisper_tpu_torch.ops.quant import _INT_MM_ALIGN, QuantizedLinear
+    from faster_whisper_tpu_torch.ops.quant import _INT_MM_ALIGN, QuantizedLinear, card_layout
 
     w = vocab // n
     pad = -w % _INT_MM_ALIGN
@@ -203,16 +203,17 @@ def _head_slice(lw, vocab: int, i: int, n: int, device):
         part = t.narrow(t.dim() - 1, i * w, w)
         return torch.nn.functional.pad(part, (0, pad)).to(device).contiguous()
 
-    return QuantizedLinear(cols(lw.q), cols(lw.s))
+    return card_layout(QuantizedLinear(cols(lw.q), cols(lw.s)))
 
 
 def shard_params(params, mesh: Mesh, tensor_parallel: bool = True, row: int = 0) -> List[dict]:
     """One tree per model-axis position of ``mesh``'s data row ``row``:
     each leaf's slice (``specs_for_params``) on that position's device, a
     contiguous copy (a replicated leaf stays the same tensor on its own
-    device).  A row-parallel weight's group scales go with its input rows,
-    which needs ``in / model`` to be a multiple of the group size."""
-    from faster_whisper_tpu_torch.ops.quant import QuantizedLinear
+    device; int8 codes on a card in ``ops/quant.py::card_layout``).  A
+    row-parallel weight's group scales go with its input rows, which needs
+    ``in / model`` to be a multiple of the group size."""
+    from faster_whisper_tpu_torch.ops.quant import QuantizedLinear, card_layout
 
     devices = [torch.device(d) for d in mesh.devices[row]]
     n = len(devices)
@@ -228,7 +229,7 @@ def shard_params(params, mesh: Mesh, tensor_parallel: bool = True, row: int = 0)
                         f"tensor_parallel={n}: the input width {p.q.shape[-2]} over {n} shards is "
                         f"not a multiple of the group size {p.q.shape[-2] // n_g}"
                     )
-            return QuantizedLinear(_slice(p.q, s.q, i, n, devices[i]), _slice(p.s, s.s, i, n, devices[i]))
+            return card_layout(QuantizedLinear(_slice(p.q, s.q, i, n, devices[i]), _slice(p.s, s.s, i, n, devices[i])))
         if isinstance(p, dict):
             return {k: build(v, s[k], i) for k, v in p.items()}
         return _slice(p, s, i, n, devices[i])
@@ -242,7 +243,7 @@ def shard_params(params, mesh: Mesh, tensor_parallel: bool = True, row: int = 0)
             lw = dec["logits_w"]
             tree["decoder"]["logits_w"] = (
                 _head_slice(lw, vocab, i, n, devices[i]) if specs["decoder"]["logits_w"].q is not None
-                else QuantizedLinear(lw.q.to(devices[i]), lw.s.to(devices[i]))
+                else card_layout(QuantizedLinear(lw.q.to(devices[i]), lw.s.to(devices[i])))
             )
         trees.append(tree)
     return trees

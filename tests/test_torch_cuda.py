@@ -88,19 +88,19 @@ def test_small_model_on_the_card_matches_the_cpu_at_every_compute_type(card):
 
 
 def test_int8_dense_on_the_card_matches_the_cpu(card):
-    """The card's int8 product (rows padded to 17 for torch._int_mm, and
-    to a multiple of 32 below a contraction of 128) gives the CPU's exact
-    int32 sums: at 5 rows, the decode's beam grid, at the padded
-    51872-column logits head, and over 64 input rows (a row-parallel shard
-    of a 128-wide model) at 40 and 1500 rows."""
-    from faster_whisper_tpu_torch.ops.quant import int8_dense, quantize_weight
+    """The card's int8 product (the W8A8 kernel of ``csrc/w8a8.cu`` on the
+    codes laid out by ``card_layout``) gives the CPU's exact int32 sums: at
+    5 rows, the decode's beam grid, at the padded 51872-column logits head,
+    and over 64 input rows (a row-parallel shard of a 128-wide model) at 40
+    and 1500 rows."""
+    from faster_whisper_tpu_torch.ops.quant import card_layout, int8_dense, quantize_weight
 
     g = torch.Generator().manual_seed(0)
     for rows, n_in, n_out in ((5, 1280, 1280), (40, 1280, 51872), (40, 64, 128), (1500, 64, 128)):
         x = torch.randn((rows, n_in), generator=g)
         w = quantize_weight(0.02 * torch.randn((n_in, n_out), generator=g))
         cpu = int8_dense(x, w, out_dtype=torch.float32)
-        w_card = type(w)(w.q.cuda(), w.s.cuda())
+        w_card = card_layout(type(w)(w.q.cuda(), w.s.cuda()))
         card = int8_dense(x.cuda(), w_card, out_dtype=torch.float32).cpu()
         torch.testing.assert_close(card, cpu, rtol=1e-6, atol=1e-6)
 
