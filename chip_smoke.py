@@ -179,13 +179,12 @@ Phases, each printing its own line with its seconds:
     phase 7's launch counts; ``memory_report(batch_size=8, beam_size=5,
     max_new_tokens=128)`` on request i's int8 model is printed beside i's
     measured peak;
-13. the probes, the ctx ladder and the mesh: the probe entry point's
+13. the probes, the one ctx table and the mesh: the probe entry point's
     sweeps (``ops.probes.run_sweeps``: the scripts' 32 layers x 64 steps
     of K2 against P1 and of P2b against P2h, ms per 32-layer step); then
-    requests a (bf16) and q (int8), each with ``FWT_MULTI_PHASE=0`` and
-    then ``=1``: equal segments, phase 7's launch counts, the rungs each
-    run used, ms per step and (q) ``memory_report``'s decode peak, and K1
-    and K2 on each rung's table against the full one; then request h on
+    requests a (bf16) and q (int8), once each: phase 7's launch counts,
+    every decode on one table of its ``ctx_cap`` (``WidthProbe``), ms per
+    step and (q) ``memory_report``'s decode peak; then request h on
     ``device_index=[0, 0]`` (two replicas on the one card, each batch
     split over two host threads): phase 7's launch counts, each replica's
     batches, segments equal to one device's with each shard's rows
@@ -217,7 +216,15 @@ Phases, each printing its own line with its seconds:
     launch counts; at int8 with the engine's ``rng_seed`` fixed, request
     i on its audio rounded to the int16 grid under ``FWT_SHARED_UPLOAD=0``
     and ``FWT_I16_TRANSFER=0``, each against the knob's default: 0
-    segments may differ (on the raw audio only printed).
+    segments may differ (on the raw audio only printed);
+16. the beam-search step graph (``generation/generate.py::_StepGraph``)
+    at the benchmark cells' shapes, large-v3 at int8 with batch 8 and
+    large-v3-turbo at bf16 with batch 16, beam 5, 128 new tokens, random
+    weights: the batched pipeline over tiled speech records its first
+    full batch's decode (and captures the step); that decode again,
+    replayed and eagerly (``EagerSteps``), must give the same tables,
+    tokens, scores and no-speech probabilities bit for bit and the same
+    counts, and the steps' host and device ms are printed both ways.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as the last line
@@ -225,6 +232,7 @@ and power limit, and as the last line
 Any failure raises and exits nonzero before that line.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -1474,7 +1482,8 @@ class DecodeProbe:
     cross K/V codes and scales after quantization and of every decode
     step's logits, and of the output of every call of STEP_OPS within each
     step ((name, rows) in call order), recorded from
-    ``generation/generate.py``."""
+    ``generation/generate.py``; under ``EagerSteps``, so that every step
+    runs the wrapped functions."""
 
     def __init__(self, rows):
         self.rows, self.stages = rows, {}
@@ -1617,7 +1626,7 @@ def trace_batch_stages(later, speech, card):
         caught = {}
         for name, enc, rows, (_, prompts, kwargs) in (("small", enc2, in_small, rec["dispatch"][1]),
                                                        ("big", enc8, in_big, rec["dispatch"][0])):
-            with DecodeProbe(rows) as probe:
+            with EagerSteps(eng), DecodeProbe(rows) as probe:
                 eng.generate_collect(eng.generate_dispatch(enc, prompts, **kwargs))
             caught[name] = probe.stages
         a, b = caught["big"], caught["small"]
@@ -2943,8 +2952,8 @@ class SpeculationProbe:
     _SideEncode``) is logged with the launch counters read around it, its
     window and output kept; every encode is timed with CUDA events on the
     stream it launched on (the side stream for a speculative one); every
-    decode step records an event on the default stream after its launches;
-    and the sampling rungs' seeds follow the call order (the port draws
+    decode step records an event on the default stream after its launches
+    (every step eager, ``EagerSteps``); and the sampling rungs' seeds follow the call order (the port draws
     fresh entropy per call otherwise), so that runs with speculation off
     and on sample the same.  ``report()`` reads it all after the run."""
 
@@ -2997,6 +3006,7 @@ class SpeculationProbe:
 
         stepped.calls = 0
         self._saved = (step, seeds)
+        self._eager = EagerSteps(model.model).__enter__()
         transcribe._SideEncode = Probe
         model.encode = timed_encode
         generate._gen_decoder_step = stepped
@@ -3016,6 +3026,7 @@ class SpeculationProbe:
         stepped = generate._gen_decoder_step
         generate._gen_decoder_step, generate._row_seeds = self._saved
         generate._gen_decoder_step.calls += stepped.calls
+        self._eager.__exit__()
         return False
 
     def report(self, n_layer, k3="k3"):
@@ -3477,30 +3488,31 @@ def run_probe_sweeps(card):
     return counts, res
 
 
-class RungProbe:
-    """Within the block: the rungs of every decode (``_ctx_phases``'
-    result) and every rung transition (``_grow_cache`` of the self K
-    cache, by its new width), and the sampling rungs' seeds in call order
-    (as ``SpeculationProbe``), so that two runs sample the same."""
+class WidthProbe:
+    """Within the block: each decode's ``ctx_cap`` (``beam_search``'s or
+    ``sample``'s options) and the width of the tables it hands back, which
+    are the ones it ran on, and the sampling rungs' seeds in call order (as
+    ``SpeculationProbe``), so that two runs sample the same.  It wraps
+    nothing inside the loop, so the beam searches still replay their
+    graphs."""
 
     def __enter__(self):
         from faster_whisper_tpu_torch.generation import generate
 
-        self.phases, self.grown = [], []
-        self._saved = (generate._ctx_phases, generate._grow_cache, generate._row_seeds)
-        phases, grow, seeds = self._saved
+        self.caps, self.widths = [], []
+        self._saved = (generate.beam_search, generate.sample, generate._row_seeds)
+        beam, sample, seeds = self._saved
         counter = iter(range(10**9))
 
-        def traced_phases(*args):
-            out = phases(*args)
-            self.phases.append(tuple(out))
-            return out
+        def traced(loop, axis):  # axis: the ctx axis of the loop's first table
+            def run(params, config, gen_opts, *args, **kwargs):
+                out = loop(params, config, gen_opts, *args, **kwargs)
+                self.caps.append(min(gen_opts.ctx_cap, config.n_text_ctx))
+                self.widths.append(out[0].shape[axis])
+                return out
+            return run
 
-        def traced_grow(cache, width):
-            self.grown.append(width)
-            return grow(cache, width)
-
-        generate._ctx_phases, generate._grow_cache = traced_phases, traced_grow
+        generate.beam_search, generate.sample = traced(beam, 1), traced(sample, 2)
         generate._row_seeds = lambda rng_seed, b: seeds(
             next(counter) if rng_seed is None else rng_seed, b
         )
@@ -3509,63 +3521,23 @@ class RungProbe:
     def __exit__(self, *exc):
         from faster_whisper_tpu_torch.generation import generate
 
-        generate._ctx_phases, generate._grow_cache, generate._row_seeds = self._saved
+        generate.beam_search, generate.sample, generate._row_seeds = self._saved
         return False
 
     def summary(self):
         from collections import Counter
 
-        return (f"{len(self.phases)} decodes over rungs {sorted(Counter(self.phases).items())}, "
-                f"transitions to {sorted(Counter(self.grown[::2]).items())}")
-
-
-def time_ladder_kernels(card):
-    """K1 and K2 at B=1, K=5 on each rung's table (64, 128, 256 and 448
-    columns, split into the same chunks as every table) against the full
-    table holding the same first columns, at a write position in the
-    rung's upper half: the outputs must be equal bit for bit, and the
-    device times show what the ladder saves per layer."""
-    from faster_whisper_tpu_torch.ops.beam_attention import beam_attend_append
-    from faster_whisper_tpu_torch.ops.quant import QuantKV
-
-    def narrow(cache, width):
-        if isinstance(cache, QuantKV):
-            return QuantKV(cache.q[:, :, :, :, :width].contiguous(), cache.s[..., :width].contiguous())
-        return cache[:, :, :, :, :width].contiguous()
-
-    out = {}
-    for quant in (False, True):
-        name = "K2" if quant else "K1"
-        for width, pos in ((64, 56), (128, 120), (256, 248), (448, 440)):
-            full = (k2_inputs if quant else k1_inputs)(1, pos, divergent=True, ctx=448)
-            rung = dict(full, self_k=narrow(full["self_k"], width), self_v=narrow(full["self_v"], width),
-                        anc=full["anc"][:, :, :width].contiguous())
-            t, outs = {}, {}
-            for ctx, x in ((448, full), (width, rung)):
-                caches = (_clone(x["self_k"]), _clone(x["self_v"]))
-
-                def call(x=x, caches=caches):
-                    return beam_attend_append(x["layer"], x["pos_row"], x["q"], x["k_new"], x["v_new"],
-                                              *caches, x["anc"])[0]
-
-                outs[ctx], t[ctx] = call(), time_ms(call)
-            out[(name, width)] = t
-            equal = torch.equal(outs[width], outs[448])
-            print(f"ctx ladder: {name} B=1 K=5 pos={pos}: {t[width]:.4f} ms warm on the {width}-column "
-                  f"table, {t[448]:.4f} ms on the 448-column one, outputs equal: {equal}, on {card}")
-            if not equal:
-                raise AssertionError(f"{name} on the {width}-column table differs from the full table's")
-    return out
+        return f"{len(self.widths)} decodes on tables of {sorted(Counter(self.widths).items())}"
 
 
 def run_ladder(later, card):
     """Phase 13b: requests a (bf16, 45 s, language detection, beam 5, the
     temperature ladder, timestamps) and q (int8, 150 s, en, without
-    timestamps, beam 5, 128 new tokens, temperature 0), each with
-    FWT_MULTI_PHASE=0 and then =1 (``RungProbe``): equal segments, launch
-    counts by phase 7's rule, the rungs each run used, ms per step (wall);
-    ``memory_report``'s decode peak of q's int8 model off and on; K1 and K2 on
-    each rung's table (``time_ladder_kernels``).  Returns the counts."""
+    timestamps, beam 5, 128 new tokens, temperature 0), once each
+    (``WidthProbe``): launch counts by phase 7's rule, every decode on one
+    table of its ``ctx_cap`` (the port runs no ctx ladder), ms per step
+    (wall) and ``memory_report``'s decode peak of q's int8 model.  Returns
+    the counts."""
     from faster_whisper_tpu_torch.transcribe import WhisperModel
 
     cfg, tok = later["cfg"], later["tok"]
@@ -3578,41 +3550,30 @@ def run_ladder(later, card):
     ):
         model = WhisperModel.from_parts(later["params"], cfg, tok, compute_type=compute_type)
         per_step = ("k1", "k4_bf16") if compute_type == "bfloat16" else ("k2", "k4_int8")
-        rows = {}
-        for flag in ("0", "1"):
-            os.environ["FWT_MULTI_PHASE"] = flag
-            try:
-                reset_counts()
-                with RungProbe() as rungs:
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    segments, info = model.transcribe(audio, **kwargs)
-                    segments = list(segments)
-                    torch.cuda.synchronize()
-                    seconds = time.perf_counter() - t0
-                counts = read_counts()
-                check_segments(segments, info, len(audio) / 16000, cfg.n_vocab)
-                check_counts(counts, per_step=per_step, per_encode="k3", cfg=cfg)
-                peak = None if compute_type != "int8" else model.model.memory_report(
-                    batch_size=8, beam_size=5, max_new_tokens=128)["decode"]["peak_bytes"]
-            finally:
-                os.environ.pop("FWT_MULTI_PHASE")
-            runs[f"{name} ladder {flag}"] = counts
-            rows[flag] = [(s.seek, s.start, s.end, s.text, s.tokens, s.avg_logprob, s.temperature,
-                           s.no_speech_prob) for s in segments]
-            if flag == "1" and not rungs.grown:
-                raise AssertionError(f"request {name} with the ladder on never left its first rung")
-            print(f"request {name} ({compute_type}, {len(audio) / 16000:.0f} s, {kwargs}), "
-                  f"FWT_MULTI_PHASE={flag}: {len(segments)} segments, {seconds:.3f} s wall, "
-                  f"{counts['steps']} decode steps, {seconds * 1e3 / max(counts['steps'], 1):.2f} ms per "
-                  f"step (wall); {rungs.summary()}; memory_report(8, 5, 128) decode peak "
-                  f"{'n/a' if peak is None else f'{peak / gib:.3f} GiB'}; counts {counts} on {card}")
-        print(f"request {name}: segments with the ladder off and on equal: {rows['0'] == rows['1']}")
-        if rows["0"] != rows["1"]:
-            raise AssertionError(f"request {name}'s segments differ with the ladder on")
+        reset_counts()
+        with WidthProbe() as tables:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            segments, info = model.transcribe(audio, **kwargs)
+            segments = list(segments)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        counts = read_counts()
+        check_segments(segments, info, len(audio) / 16000, cfg.n_vocab)
+        check_counts(counts, per_step=per_step, per_encode="k3", cfg=cfg)
+        peak = None if compute_type != "int8" else model.model.memory_report(
+            batch_size=8, beam_size=5, max_new_tokens=128)["decode"]["peak_bytes"]
+        runs[f"{name} one table"] = counts
+        print(f"request {name} ({compute_type}, {len(audio) / 16000:.0f} s, {kwargs}): {len(segments)} "
+              f"segments, {seconds:.3f} s wall, {counts['steps']} decode steps, "
+              f"{seconds * 1e3 / max(counts['steps'], 1):.2f} ms per step (wall); {tables.summary()}; "
+              f"memory_report(8, 5, 128) decode peak {'n/a' if peak is None else f'{peak / gib:.3f} GiB'}; "
+              f"counts {counts} on {card}")
+        if not tables.widths or tables.widths != tables.caps:
+            raise AssertionError(f"request {name} decoded on tables of {tables.widths}, its ctx caps "
+                                 f"{tables.caps}")
         del model
         torch.cuda.empty_cache()
-    time_ladder_kernels(card)
     return runs
 
 
@@ -4142,6 +4103,175 @@ def run_knobs(later, speech, card):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the beam-search step as a CUDA graph
+# ---------------------------------------------------------------------------
+
+
+# (size, compute type, batch): the benchmark cells' decodes
+STEP_GRAPH_CELLS = (("large-v3", "int8", 8), ("large-v3-turbo", "bfloat16", 16))
+
+
+class EagerSteps:
+    """Within the block every beam-search step of ``engine`` runs eagerly:
+    its decodes are handed no step graphs, as a module-level
+    ``generate_dispatch`` is, and run on states of their own.  For a
+    probe that wraps a function inside the step, which a replay skips."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    def __enter__(self):
+        self._graphs, self.engine.step_graphs = self.engine.step_graphs, None
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.step_graphs = self._graphs
+        return False
+
+
+def device_ms(fn):
+    """The device time of the operations ``fn()`` launches, in ms (the
+    profiler's CUDA activity), or None where the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        total += getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+    return total / 1e3 if total > 0 else None
+
+
+def graph_decode_pair(model, xa, prompts, kwargs):
+    """One decode of the engine replayed from its step graph (which must
+    exist) and the same decode with every step eager: each side's pending
+    tables, results, counts, wall seconds and device ms of a second run."""
+    eng = model.model
+    sides = {}
+    for name in ("graph", "eager"):
+        reset_counts()
+        with EagerSteps(eng) if name == "eager" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pending = eng.generate_dispatch(xa, prompts, **kwargs)
+            results = eng.generate_collect(pending)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        counts = read_counts()
+        with EagerSteps(eng) if name == "eager" else contextlib.nullcontext():
+            dev_ms = device_ms(lambda: eng.generate_collect(eng.generate_dispatch(xa, prompts, **kwargs)))
+        sides[name] = dict(pending=pending, results=results, counts=counts, seconds=seconds, device_ms=dev_ms)
+    graphs = [g for g in eng.step_graphs.graphs() if g.step is not None and g.state.cur_len.shape[0] == xa.shape[0]]
+    if not graphs:
+        raise AssertionError("the decode left no captured step graph of its batch")
+    return sides
+
+
+def graph_model(size, compute_type, decoder_layers=None):
+    """A model of ``size``'s published widths on the card at
+    ``compute_type``, random weights; with ``decoder_layers`` a shallower
+    decoder and one encoder layer (the card tests: the step's shapes at a
+    few layers)."""
+    import dataclasses
+
+    from faster_whisper_tpu_torch.models.config import CONFIGS
+    from faster_whisper_tpu_torch.models.load import random_params
+    from faster_whisper_tpu_torch.testing import build_synthetic_tokenizer
+    from faster_whisper_tpu_torch.transcribe import WhisperModel
+
+    cfg = CONFIGS[size]
+    if decoder_layers is not None:
+        cfg = dataclasses.replace(cfg, n_audio_layer=1, n_text_layer=decoder_layers)
+    params = random_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    return WhisperModel.from_parts(params, cfg, build_synthetic_tokenizer(base_vocab=50257),
+                                   compute_type=compute_type)
+
+
+def graph_decode_inputs(model, rows, seed=0, timestamps=False):
+    """Encoder states (rows, 1500, d) drawn from ``seed`` in the model's
+    activation dtype, the prompts <|startoftranscript|> <|en|>
+    (<|notimestamps|>), and the cells' decode options: beam 5, 128 new
+    tokens."""
+    eng = model.model
+    dtype = eng.params["decoder"]["token_embed"].dtype
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xa = torch.randn((rows, 1500, eng.config.n_text_state), generator=g, device="cuda").to(dtype)
+    prompt = [eng.sot_id, dict(eng.language_tokens)["en"]] + ([] if timestamps else [eng.meta.no_timestamps])
+    return xa, [prompt] * rows, dict(beam_size=5, max_length=len(prompt) + 128)
+
+
+def run_step_graphs(card):
+    """Phase 16 (``STEP_GRAPH_CELLS``): for each cell, random weights at
+    the size's published widths, the batched pipeline over tiled speech
+    (en, beam 5, 128 new tokens, the cell's batch), whose first full batch's
+    decode arguments are recorded; that decode replayed and eager must give
+    equal pending tables, tokens, scores and no-speech probabilities bit
+    for bit, and equal counts; prints the steps, the host ms per step
+    (wall) and the device ms per step both ways.  Returns the counts."""
+    from faster_whisper_tpu_torch.models.config import CONFIGS
+    from faster_whisper_tpu_torch.models.load import random_params
+    from faster_whisper_tpu_torch.testing import build_synthetic_tokenizer
+    from faster_whisper_tpu_torch.transcribe import BatchedInferencePipeline, WhisperModel
+
+    runs = {}
+    tok = build_synthetic_tokenizer(base_vocab=50257)
+    for size, compute_type, rows in STEP_GRAPH_CELLS:
+        cfg = CONFIGS[size]
+        _, speech = tiled_speech(35.0 * rows)
+        params = random_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+        model = WhisperModel.from_parts(params, cfg, tok, compute_type=compute_type)
+        del params
+        eng = model.model
+        calls, dispatch = [], eng.generate_dispatch
+
+        def spy(encoder_output, prompts, **kwargs):
+            calls.append((encoder_output, [list(p) for p in prompts], kwargs))
+            return dispatch(encoder_output, prompts, **kwargs)
+
+        eng.generate_dispatch = spy
+        try:
+            list(BatchedInferencePipeline(model).transcribe(
+                speech, language="en", beam_size=5, batch_size=rows, max_new_tokens=128)[0])
+        finally:
+            del eng.generate_dispatch
+        full = [c for c in calls if c[0].shape[0] == rows]
+        if not full:
+            raise AssertionError(f"{size}: the pipeline ran batches of {[c[0].shape[0] for c in calls]}, "
+                                 f"none of {rows}")
+        xa, prompts, kwargs = full[0]
+        sides = graph_decode_pair(model, xa, prompts, kwargs)
+        g, e = sides["graph"], sides["eager"]
+        tables = all(torch.equal(a, b) for a, b in zip(g["pending"].arrays, e["pending"].arrays))
+        results = [(r.sequences_ids, r.scores, r.no_speech_prob) for r in g["results"]] == [
+            (r.sequences_ids, r.scores, r.no_speech_prob) for r in e["results"]]
+        steps = g["counts"]["steps"]
+
+        def ms(side, key):
+            v = side[key]
+            return "not measured" if v is None else f"{v * (1e3 if key == 'seconds' else 1) / steps:.3f}"
+
+        print(f"step graph, {size} {compute_type}, batch {rows}, beam 5, prompt {max(map(len, prompts))}: "
+              f"{steps} steps; tables equal {tables}, results equal {results}, counts equal "
+              f"{g['counts'] == e['counts']}; host ms per step (wall) graph {ms(g, 'seconds')}, eager "
+              f"{ms(e, 'seconds')}; device ms per step graph {ms(g, 'device_ms')}, eager "
+              f"{ms(e, 'device_ms')}; counts {g['counts']} on {card}")
+        if not (tables and results and g["counts"] == e["counts"]):
+            raise AssertionError(f"{size}: the replayed decode differs from the eager one (tables {tables}, "
+                                 f"results {results}, counts {g['counts']} against {e['counts']})")
+        per_step = ("k2", "k4_int8") if compute_type == "int8" else ("k1", "k4_bf16")
+        bad = {k: g["counts"][k] for k in per_step if g["counts"][k] != cfg.n_text_layer * steps}
+        if not steps or bad or g["counts"]["ln"] != expected_layer_norms(g["counts"], cfg):
+            raise AssertionError(f"{size}: the replayed decode's counts {g['counts']} are not "
+                                 f"{cfg.n_text_layer} a step of {per_step} and the decoder's LayerNorms")
+        runs[f"step graph {size}"] = g["counts"]
+        del model, eng, xa, calls, full, sides, g, e
+        torch.cuda.empty_cache()
+    return runs
+
+
 def main():
     t_all = time.perf_counter()
 
@@ -4295,6 +4425,9 @@ def main():
     late.update(run_knobs(later, speech, card))
     del later
     phase("sequential log-mel and upload knobs", t0)
+    t0 = time.perf_counter()
+    late.update(run_step_graphs(card))
+    phase("step graphs", t0)
 
     def late_sum(key):
         return sum(c[key] for c in late.values())

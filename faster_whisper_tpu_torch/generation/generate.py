@@ -3,17 +3,26 @@
 Counterpart of ``faster_whisper_tpu/generation/generate.py``, with the same
 decode policy and outputs.  Where the JAX package runs the whole loop in one
 ``lax.while_loop`` on the device, this loop is driven from the host: one
-decoder step and one selection per iteration, on device tensors, with a
-single device-to-host read per iteration (the stop test).
+step per iteration, on device tensors, with a single device-to-host read
+per iteration (the stop test).
 
-The ctx ladder (``GenOptions.multi_phase``, ``FWT_MULTI_PHASE``, on by
-default): as in the JAX package, the loop runs its early steps on small
-ctx-sized tables (64 positions, doubling as the positions fill) and
-zero-pads every such table to the next rung's size when the host's step
-counter reaches the rung's end (``_ctx_phases``, ``_pad_ctx``).  The pad
-regions are never read before they are written, and K1/K2 split every
-table into the same chunks of columns, whose merge reads only the chunks
-up to the write position: the ladder changes no output.
+Both loops run on one table of ``ctx_cap`` positions from the first step
+on.  The JAX package's ctx ladder (small tables in the early steps, padded
+from rung to rung) changes no output there, and the port does not run it:
+a CUDA graph needs tables that keep their size.
+
+The beam-search step (``_beam_step``: the logits rules, the selection, the
+ancestry update, the decoder step and the stop test's inputs) reads and
+writes a fixed set of tensors in place (``_BeamState``), its step index
+included, so that on the card one step is captured once as a CUDA graph
+and replayed at every later step (``_StepGraph``, kept by key in the
+model's ``StepGraphs``): one launch from the host a step where the eager
+step makes about a thousand at large-v3 width.  A decode's start
+(``_begin``: the prefill, its caches written into the state, the first
+values) runs eagerly.  The same step runs eagerly on the CPU, over a
+model-axis group, in a decode that finds its graph busy on another thread
+or is handed no ``StepGraphs``, and at a key's first step, which builds
+what the step builds lazily before the capture.
 
 Score semantics: ``score = cum_logprob / (gen_len ** length_penalty)``,
 where ``cum_logprob`` sums the T=1 log-probabilities of the chosen tokens
@@ -45,13 +54,14 @@ Spans (``tracing``): ``fwt.decode.prefill`` (the prefill and the caches'
 expansion), then per iteration ``fwt.decode.select`` (the logits rules
 through the ancestry update, or through the sampled token's write),
 ``fwt.decode.step`` (the decoder step, whose count is the step count, with
-``fwt.decode.logits`` around its head inside), ``fwt.decode.stop`` (the
-stop read) and, at a rung, ``fwt.decode.ladder``; ``fwt.collect`` around
-``generate_collect``.
+``fwt.decode.logits`` around its head inside) and ``fwt.decode.stop`` (the
+stop read); ``fwt.collect`` around ``generate_collect``.  A replayed beam
+step is one ``fwt.decode.step`` around the replay: the spans inside the
+step open once, when it is captured (``fwt.decode.capture``).
 """
 
+import collections
 import contextlib
-import os
 import threading
 
 from dataclasses import dataclass
@@ -59,7 +69,6 @@ from typing import List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from faster_whisper_tpu_torch.generation.processors import (
     NEG_INF,
@@ -67,6 +76,7 @@ from faster_whisper_tpu_torch.generation.processors import (
     TokenMeta,
     apply_logits_rules_logprobs,
     apply_logits_rules_logprobs_carried,
+    masks_kept,
 )
 from faster_whisper_tpu_torch.models.config import WhisperConfig
 from faster_whisper_tpu_torch.models.model import (
@@ -85,7 +95,9 @@ from faster_whisper_tpu_torch.ops import _build
 from faster_whisper_tpu_torch.ops.beam_attention import beam_attend_append
 from faster_whisper_tpu_torch.ops.cross_attention import cross_attend
 from faster_whisper_tpu_torch.ops.quant import QuantKV, quantize_kv
+from faster_whisper_tpu_torch.parallel.mesh import ShardedParams
 from faster_whisper_tpu_torch.tracing import span
+from faster_whisper_tpu_torch.utils import steady_float32
 
 
 @dataclass(frozen=True)
@@ -100,11 +112,6 @@ class GenOptions:
     # compute_type="int4": the cross cache at 4-bit range (cross qmax 7);
     # the weights arrive 4-bit from ops/quant.py::quantize_params_int4
     int4: bool = False
-    # The ctx ladder: the early steps run on small ctx-sized tables (64
-    # positions, doubling as they fill), zero-padded from rung to rung
-    # (_ctx_phases).  Output-identical to one table of ctx_cap; the
-    # dispatch reads FWT_MULTI_PHASE=0 to turn it off (_multi_phase_default).
-    multi_phase: bool = True
 
     def __post_init__(self):
         if self.int4 and not self.kv_int8:
@@ -248,7 +255,7 @@ def _tokens_view(hist_tok: torch.Tensor, anc: torch.Tensor) -> torch.Tensor:
     return torch.gather(hist_tok.transpose(1, 2), 1, anc.long())
 
 
-def _expand_caches(cache0, K: int, kv_int8: bool, cross_qmax: int = 127):
+def _expand_caches(cache0, K: int, kv_int8: bool, cross_qmax: int = 127, out=None):
     """The prefill cache on the (B, K) beam grid: self K/V (L, B, H, ctx,
     D) -> (L, B, H, K, ctx, D), contiguous for K1/K2; the shared cross K/V
     (L, B, H, T, D) stay in the model dtype.  A group's list of caches
@@ -258,75 +265,42 @@ def _expand_caches(cache0, K: int, kv_int8: bool, cross_qmax: int = 127):
     the self caches become QuantKV with scales (L, B, H, K, ctx), the cross
     caches QuantKV with scales (L, B, H, 1, T), their codes within
     ``cross_qmax`` (7 for int4).  The scales are stored in bf16, in
-    float32 runs too, as the JAX package stores them."""
+    float32 runs too, as the JAX package stores them.
+
+    ``out``, four caches of these shapes (a step graph's), receives the
+    values and is returned."""
 
     if isinstance(cache0, list):
         return tuple(map(list, zip(*(_expand_caches(c, K, kv_int8, cross_qmax) for c in cache0))))
 
     def bcast(a):  # (L, B, H, ...) -> (L, B, H, K, ...)
-        return a[:, :, :, None].expand(a.shape[:3] + (K,) + a.shape[3:]).contiguous()
+        return a[:, :, :, None].expand(a.shape[:3] + (K,) + a.shape[3:])
 
     if not kv_int8:
-        return (
-            bcast(cache0.self_k), bcast(cache0.self_v), cache0.cross_k, cache0.cross_v,
+        caches = (bcast(cache0.self_k), bcast(cache0.self_v), cache0.cross_k, cache0.cross_v)
+    else:
+        sdt = torch.bfloat16
+        skq, svq = quantize_kv(cache0.self_k), quantize_kv(cache0.self_v)
+        ckq = quantize_kv(cache0.cross_k, qmax=cross_qmax)
+        cvq = quantize_kv(cache0.cross_v, qmax=cross_qmax)
+        caches = (
+            QuantKV(bcast(skq.q), bcast(skq.s.to(sdt))),
+            QuantKV(bcast(svq.q), bcast(svq.s.to(sdt))),
+            QuantKV(ckq.q, ckq.s.to(sdt)[:, :, :, None]),
+            QuantKV(cvq.q, cvq.s.to(sdt)[:, :, :, None]),
         )
-    sdt = torch.bfloat16
-    skq, svq = quantize_kv(cache0.self_k), quantize_kv(cache0.self_v)
-    ckq = quantize_kv(cache0.cross_k, qmax=cross_qmax)
-    cvq = quantize_kv(cache0.cross_v, qmax=cross_qmax)
-    return (
-        QuantKV(bcast(skq.q), bcast(skq.s.to(sdt))),
-        QuantKV(bcast(svq.q), bcast(svq.s.to(sdt))),
-        QuantKV(ckq.q, ckq.s.to(sdt)[:, :, :, None].contiguous()),
-        QuantKV(cvq.q, cvq.s.to(sdt)[:, :, :, None].contiguous()),
-    )
+    if out is None:
+        return tuple(QuantKV(*(t.contiguous() for t in c)) if isinstance(c, QuantKV) else c.contiguous()
+                     for c in caches)
+    for c, o in zip(caches, out):
+        for src, dst in zip(_fields(c), _fields(o)):
+            dst.copy_(src)
+    return out
 
 
-def _multi_phase_default() -> bool:
-    """The ctx ladder (``GenOptions.multi_phase``): on unless
-    ``FWT_MULTI_PHASE=0``, read at each dispatch."""
-    return os.environ.get("FWT_MULTI_PHASE", "1") != "0"
-
-
-def _ctx_phases(prompt_width: int, ctx_full: int, gen_opts: GenOptions) -> List[int]:
-    """The ladder's table sizes, ascending and ending at ``ctx_full``: the
-    smallest 64-step bucket that holds the prompt and a decode step, then
-    doubling, at most three rungs before the full table.  ``[ctx_full]``
-    (one table) when the ladder is off, when ``ctx_full <= 64``, or when
-    ``ctx_full`` is not a multiple of 8 (the JAX package's rule for its
-    fused kernel, which the card always runs here).  The JAX package's
-    third rule, ``cond_chunk > 1``, has no counterpart: this loop checks
-    its stop every step."""
-    if not gen_opts.multi_phase or ctx_full <= 64 or ctx_full % 8 != 0:
-        return [ctx_full]
-    c = _bucket(prompt_width + 2, step=64, cap=ctx_full)
-    phases = []
-    while c < ctx_full and len(phases) < 3:
-        phases.append(c)
-        c = min(c * 2, ctx_full)
-    phases.append(ctx_full)
-    return phases
-
-
-def _pad_ctx(t: torch.Tensor, axis: int, width: int, value=0) -> torch.Tensor:
-    """``t`` zero-padded (or with ``value``) at the end of ``axis`` to
-    ``width`` positions: a rung transition of the ctx ladder."""
-    grow = width - t.shape[axis]
-    if grow <= 0:
-        return t
-    return F.pad(t, [0, 0] * (t.dim() - 1 - axis) + [0, grow], value=value)
-
-
-def _grow_cache(cache, width: int):
-    """A self K or V cache (L, B, H, K, ctx, D), raw or ``QuantKV`` (with
-    scales (L, B, H, K, ctx)), padded to ``width`` positions.  The pad
-    columns are written before any query sees them (K1/K2 mask the columns
-    after the write position).  A group's list grows every shard's."""
-    if isinstance(cache, list):
-        return [_grow_cache(c, width) for c in cache]
-    if isinstance(cache, QuantKV):
-        return QuantKV(_pad_ctx(cache.q, 4, width), _pad_ctx(cache.s, 4, width))
-    return _pad_ctx(cache, 4, width)
+def _fields(cache) -> tuple:
+    """The tensors of a cache: a QuantKV's codes and scales, or itself."""
+    return tuple(cache) if isinstance(cache, QuantKV) else (cache,)
 
 
 # The callback of ``after_first_launch``, per thread: a serving process
@@ -370,6 +344,308 @@ def _prefill(params, config, meta, xa, prompt, prompt_len, sot_pos, ctx):
 # ---------------------------------------------------------------------------
 
 
+class _BeamState:
+    """What one beam-search step reads and writes, each tensor written in
+    place, since a CUDA graph replays the step on these addresses: the
+    step index ``step`` (1,) and the length cap ``cap`` (), the rows'
+    ``prompt_len`` and ``cur_len`` (B,; all beams of a row advance
+    together), the beams' cumulative log-probabilities ``sum_lp`` (B, K)
+    and next logits ``cur_logits`` (B, K, V), the ancestry slot map
+    ``anc`` (B, K, ctx), the history tables ``hist_tok`` and ``hist_par``
+    (B, ctx, K), the carried rule tokens ``last_tok``, ``penult_tok`` and
+    ``ts_max`` (B, K), the step-indexed end-of-text buffers
+    ``eot_buf_score`` and ``eot_buf_slot`` (B, ctx, 2K) and ``len_buf``
+    (B, ctx), the pool sizes ``nfin`` and ``done`` (B,), the stop flag
+    ``stop`` () that the host reads after each step, and the four caches,
+    adopted from ``caches``."""
+
+    def __init__(self, b: int, K: int, ctx: int, V: int, dev: torch.device, caches):
+        self.self_k, self.self_v, self.cross_k, self.cross_v = caches
+
+        def new(*shape, dtype=torch.long):
+            return torch.empty(shape, dtype=dtype, device=dev)
+
+        self.slots = torch.arange(K, dtype=torch.int32, device=dev)
+        self.ctx_ids = torch.arange(ctx, device=dev)
+        self.step, self.cap = new(1), new()
+        self.prompt_len, self.cur_len, self.nfin = new(b), new(b), new(b)
+        self.done, self.stop = new(b, dtype=torch.bool), new(dtype=torch.bool)
+        self.sum_lp = new(b, K, dtype=torch.float32)
+        self.cur_logits = new(b, K, V, dtype=torch.float32)
+        # anc[b, k, c]: the slot holding the K/V written at position c for
+        # the chain now owned by beam k.
+        self.anc = new(b, K, ctx, dtype=torch.int32)
+        self.hist_tok, self.hist_par = new(b, ctx, K), new(b, ctx, K)
+        self.last_tok, self.penult_tok, self.ts_max = new(b, K), new(b, K), new(b, K)
+        self.eot_buf_score = new(b, ctx, 2 * K, dtype=torch.float32)
+        self.eot_buf_slot = new(b, ctx, 2 * K)
+        self.len_buf = new(b, ctx)
+
+    @property
+    def caches(self) -> tuple:
+        return self.self_k, self.self_v, self.cross_k, self.cross_v
+
+    def start(self, first_logits: torch.Tensor, prompt_len: torch.Tensor, cap: int) -> None:
+        """A decode's first values: step 0, the prompt lengths, beam 0 at
+        log-probability 0 and the others at NEG_INF, every beam at the
+        prefill's logits, the identity ancestry, empty tables and buffers."""
+        b, K, ctx = self.anc.shape
+        self.step.zero_()
+        self.cap.fill_(cap)
+        self.prompt_len.copy_(prompt_len)
+        self.cur_len.copy_(prompt_len)
+        self.sum_lp.copy_(torch.where(self.slots == 0, 0.0, NEG_INF)[None, :].expand(b, K))
+        self.cur_logits.copy_(first_logits[:, None, :].expand(self.cur_logits.shape))
+        self.anc.copy_(self.slots[None, :, None].expand(b, K, ctx))
+        for t in (self.hist_tok, self.hist_par, self.last_tok, self.penult_tok, self.eot_buf_slot,
+                  self.len_buf, self.nfin, self.done):
+            t.zero_()
+        self.ts_max.fill_(-1)
+        self.eot_buf_score.fill_(NEG_INF)
+
+
+def _beam_step(st: _BeamState, params, config: WhisperConfig, gen_opts: GenOptions,
+               proc_opts: ProcessorOptions, meta: TokenMeta, step_span: Optional[str] = "fwt.decode.step"):
+    """One beam-search step over ``st``, in place: the logits rules and
+    the top-2K selection, the step's end-of-text candidates into column
+    ``st.step`` of the buffers, the re-parented beams' tokens into the
+    history tables, the ancestry and the carried rule tokens, the decoder
+    step (the new tokens' K/V appended, the next logits), then the
+    lengths, scores, ``done``, ``stop`` and the step index.  Nothing is
+    read back to the host, so the whole step can be captured.
+    ``step_span`` names the span around the decoder step; a capture passes
+    None, since the loop's span around each replay counts the steps."""
+    b, K, ctx = st.anc.shape
+    V = meta.vocab_size
+    F = gen_opts.num_finished
+    with span("fwt.decode.select"):
+        live = ~st.done
+        n_sampled = st.cur_len - st.prompt_len  # (B,)
+        if _needs_history(proc_opts):
+            view = _tokens_view(st.hist_tok, st.anc)
+            logprobs = apply_logits_rules_logprobs(
+                st.cur_logits.reshape(b * K, V),
+                view.reshape(b * K, ctx),
+                st.cur_len[:, None].expand(b, K).reshape(-1),
+                st.prompt_len[:, None].expand(b, K).reshape(-1),
+                meta,
+                proc_opts,
+            ).reshape(b, K, V)
+        else:
+            logprobs = apply_logits_rules_logprobs_carried(
+                st.cur_logits.reshape(b * K, V),
+                n_sampled[:, None].expand(b, K).reshape(-1),
+                st.last_tok.reshape(-1),
+                st.penult_tok.reshape(-1),
+                st.ts_max.reshape(-1),
+                meta,
+                proc_opts,
+            ).reshape(b, K, V)
+
+        total = st.sum_lp[:, :, None] + logprobs  # (B, K, V)
+        cand_val, cand_idx = torch.topk(total.reshape(b, K * V), 2 * K)
+        cand_beam = cand_idx // V  # (B, 2K)
+        cand_tok = cand_idx % V
+        is_eot = cand_tok == meta.eot
+
+        # Record this step's end-of-text candidates in column ``step`` of
+        # the buffers, which no other step writes (a row that is done
+        # writes what a fresh column holds); the pool is merged once after
+        # the loop.  Until the pool holds F entries every valid candidate
+        # takes a free place, so min(F, nfin + #valid) is its size.
+        safe_len = n_sampled.clamp(min=1).float()[:, None]
+        norm_score = cand_val / safe_len ** gen_opts.length_penalty
+        eot_valid = is_eot & live[:, None]
+        st.eot_buf_score.index_copy_(1, st.step, torch.where(eot_valid, norm_score, NEG_INF)[:, None])
+        st.eot_buf_slot.index_copy_(1, st.step, torch.where(live[:, None], cand_beam, 0)[:, None])
+        st.len_buf.index_copy_(1, st.step, torch.where(live, st.cur_len, 0)[:, None])
+        torch.clamp(st.nfin + eot_valid.sum(dim=1), max=F, out=st.nfin)
+
+        # Refill the active beams with the best K non-eot candidates, in
+        # score order.
+        keep = ~is_eot
+        rank = torch.cumsum(keep.long(), dim=1)  # 1-based among kept
+        slot = torch.where(keep & (rank <= K), rank - 1, K)  # K = drop
+        parent = _scatter_slots(cand_beam, slot, K, 0)
+        new_tok = _scatter_slots(cand_tok, slot, K, 0)
+        new_cum = _scatter_slots(cand_val, slot, K, NEG_INF)
+
+        # History tables; finished rows must not overwrite theirs.
+        write_pos = st.cur_len.clamp(0, ctx - 1)  # (B,)
+        hit = (st.ctx_ids[None, :, None] == write_pos[:, None, None]) & live[:, None, None]
+        torch.where(hit, new_tok[:, None, :], st.hist_tok, out=st.hist_tok)
+        torch.where(hit, parent[:, None, :], st.hist_par, out=st.hist_par)
+
+        # Carried rule tokens follow the re-parenting.
+        penult_new = _gather_rows(st.last_tok, parent)
+        ts_prev = _gather_rows(st.ts_max, parent)
+        ts_new = torch.where(
+            new_tok >= meta.timestamp_begin, torch.maximum(ts_prev, new_tok), ts_prev
+        )
+
+        # Virtual re-parenting: permute the ancestry table; the new token's
+        # K/V go to each beam's own slot in the decoder step below.
+        write_pos_bk = write_pos[:, None].expand(b, K)
+        torch.where(
+            st.ctx_ids[None, None, :] == write_pos_bk[:, :, None],
+            st.slots[None, :, None],
+            _gather_rows(st.anc, parent),
+            out=st.anc,
+        )
+
+    # Finished rows decode garbage at a frozen position: their slots and
+    # logits are never read again.
+    with span(step_span) if step_span else contextlib.nullcontext():
+        logits, _, _ = _gen_decoder_step(
+            params, config, new_tok, write_pos_bk, write_pos.int(),
+            st.self_k, st.self_v, st.cross_k, st.cross_v, st.anc,
+        )
+    st.cur_logits.copy_(logits)
+
+    cur_len_new = torch.clamp(st.cur_len + 1, max=ctx)
+    done_new = st.done | (st.nfin >= F) | (cur_len_new >= st.cap)
+    torch.where(st.done, st.cur_len, cur_len_new, out=st.cur_len)
+    torch.where(st.done[:, None], st.sum_lp, new_cum, out=st.sum_lp)
+    st.last_tok.copy_(new_tok)
+    st.penult_tok.copy_(penult_new)
+    st.ts_max.copy_(ts_new)
+    st.done.copy_(done_new)
+    torch.all(done_new, out=st.stop)
+    st.step.add_(1)
+
+
+class _Captured:
+    """A CUDA graph of ``run()``, how far its capture advanced each counter
+    of ``_build.count`` (``counts``), which a replay adds, since it skips
+    the Python that counts, and the vocabulary masks the capture read
+    (``masks``), which the graph reads on every replay and so keeps alive.
+    The capture runs on a stream of its own, one at a time in the process,
+    under the process's own TF32 flags (``steady_float32``), with
+    ``thread_local`` errors, so that the VAD or an encode on another thread
+    goes on meanwhile, and allocates from a memory pool of its own.  What
+    ``run`` builds lazily (a rule's vocabulary mask, the kernels' libraries
+    and kept buffers) an eager run has built before."""
+
+    def __init__(self, run, dev: torch.device):
+        self.graph = torch.cuda.CUDAGraph()
+        with _capture_lock, steady_float32(), _build.counted_apart() as self.counts, \
+                masks_kept() as self.masks:
+            stream = _capture_streams.get(dev)
+            if stream is None:
+                stream = _capture_streams[dev] = torch.cuda.Stream(dev, priority=-1)
+            with torch.cuda.stream(stream):
+                self.graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    run()
+                except BaseException:
+                    with contextlib.suppress(Exception):
+                        self.graph.capture_end()
+                    raise
+                self.graph.capture_end()
+
+    def replay(self) -> None:
+        """The graph on the current stream, and its counts."""
+        self.graph.replay()
+        _build.add_counts(self.counts)
+
+
+_capture_lock = threading.Lock()
+_capture_streams = {}
+
+
+class _StepGraph:
+    """One key's beam search (``StepGraphs``): the state its decodes run
+    on, which each decode's start writes, and on the card ``step``, the
+    graph of the beam step (``_beam_step``) over it, captured once the
+    first decode of the key has run its first step eagerly.  The CPU runs
+    every step eagerly over the kept state.  ``params``, the tree whose
+    weights the graph reads in place, is held with it.  One decode at a
+    time holds it (``busy``)."""
+
+    def __init__(self, params):
+        self.params = params
+        self.state: Optional[_BeamState] = None
+        self.step: Optional[_Captured] = None
+        self.busy = True
+
+
+class StepGraphs:
+    """The beam-search step graphs of one model (``WhisperEngine``'s
+    ``step_graphs``), which go with it, by key, the least recently used
+    first.  A key is what fixes the step's shapes and code: the parameter
+    tree, the device, the rows, the options (beams, pool, ``ctx_cap``, the
+    cache forms), the logits rules, the vocabulary layout and the
+    configuration.  A graph keeps its state (the caches included), its
+    memory pool and its parameters until it is dropped, as the least
+    recently used idle one of its device beyond ``limit`` there, or with
+    this object.  Eight keys a device hold the batcher's five power-of-two
+    row buckets up to 16 for one set of decode options and three more; at
+    large-v3 int8 width and ``ctx_cap`` 192 a key holds about 0.2 GB a
+    row, its caches."""
+
+    def __init__(self, limit: int = 8):
+        self.limit = limit
+        self._graphs: "collections.OrderedDict[tuple, _StepGraph]" = collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    def graphs(self) -> List[_StepGraph]:
+        with self._lock:
+            return list(self._graphs.values())
+
+    def take(self, params, config, gen_opts, proc_opts, meta, b: int, dev: torch.device) -> Optional[_StepGraph]:
+        """The graph of a decode's key, held for it until ``release``: the
+        key's own, or a new one with no state; None where the step runs
+        eagerly on a state of its own: over a model-axis group
+        (``ShardedParams``), while another decode holds the key's graph,
+        and while ``limit`` graphs of the device are all held."""
+        if isinstance(params, ShardedParams):
+            return None
+        # The graph holds ``params``, so their id names no other tree while it lives.
+        key = (id(params), dev, b, gen_opts, proc_opts, meta, config)
+        with self._lock:
+            graph = self._graphs.get(key)
+            if graph is not None:
+                if graph.busy:
+                    return None
+                graph.busy = True
+                self._graphs.move_to_end(key)
+                return graph
+            mine = [k for k in self._graphs if k[1] == dev]
+            idle = [k for k in mine if not self._graphs[k].busy]
+            drop = len(mine) + 1 - self.limit
+            if drop > len(idle):
+                return None
+            for old in idle[: max(0, drop)]:
+                del self._graphs[old]
+            graph = self._graphs[key] = _StepGraph(params)
+            return graph
+
+    def release(self, graph: Optional[_StepGraph]) -> None:
+        if graph is not None:
+            with self._lock:
+                graph.busy = False
+
+
+def _begin(st: Optional[_BeamState], params, config: WhisperConfig, gen_opts: GenOptions, meta: TokenMeta,
+           xa, prompt, prompt_len, sot_pos, cap: int):
+    """A beam search's start: the prefill, its caches on the beam grid
+    written into ``st``'s (or adopted by a new state where ``st`` is None),
+    and the first values (``_BeamState.start``).  Returns (no_speech_prob
+    (B,), the state)."""
+    ctx = min(gen_opts.ctx_cap, config.n_text_ctx)
+    first_logits, cache0, no_speech_prob = _prefill(
+        params, config, meta, xa, prompt, prompt_len, sot_pos, ctx
+    )
+    caches = _expand_caches(
+        cache0, gen_opts.beam_size, gen_opts.kv_int8, cross_qmax=7 if gen_opts.int4 else 127,
+        out=None if st is None else st.caches,
+    )
+    if st is None:
+        st = _BeamState(prompt.shape[0], gen_opts.beam_size, ctx, meta.vocab_size, xa.device, caches)
+    st.start(first_logits, prompt_len, cap)
+    return no_speech_prob, st
+
+
 def beam_search(
     params,
     config: WhisperConfig,
@@ -381,6 +657,7 @@ def beam_search(
     prompt_len: torch.Tensor,  # (B,)
     sot_pos: torch.Tensor,  # (B,) index of <|startoftranscript|> in the prompt
     max_length: int,  # total length cap (prompt + generated)
+    graphs: Optional[StepGraphs] = None,
 ):
     """Back-pointer beam search.  Each step records the token appended by
     each slot and the slot its prefix lived in (``hist_tok``/``hist_par``,
@@ -388,184 +665,71 @@ def beam_search(
     the finished pool is one top-F over them after the loop.  All beams of
     a row advance together, so lengths are one (B,) ``cur_len``.
 
-    The loop runs rung by rung of the ctx ladder (``_ctx_phases``): a rung
-    that is not the last ends when the host's step counter reaches its
-    size less the prompt width (every write position stays inside its
-    tables, cur_len <= P + step), and every ctx-sized table is padded to the
-    next rung's size with the values a fresh table holds.  ``ctx``, the
-    full table, still sizes the length cap and the tables handed back.
+    Each iteration is one ``_beam_step`` over a ``_BeamState``, then the
+    stop read.  The state is the key's step graph's (``graphs.take``; a
+    state of the decode's own without ``graphs``), which the start
+    (``_begin``, eager) writes.  On the card the key's first decode runs
+    its first step eagerly and captures the step after it; every later
+    step, in this decode and the next ones of the key, is a replay.
 
     Returns (hist_tok, hist_par, fin_slot (B,F), fin_lens (B,F),
     fin_scores (B,F), cur_len (B,), active_score (B,), no_speech_prob (B,),
-    prompt_len (B,))."""
+    prompt_len (B,)), none of them a step graph's state."""
     K = gen_opts.beam_size
     F = gen_opts.num_finished
-    lp_pow = gen_opts.length_penalty
-    b, p = prompt.shape
+    b = prompt.shape[0]
     dev = xa.device
     ctx = min(gen_opts.ctx_cap, config.n_text_ctx)
-    phases = _ctx_phases(p, ctx, gen_opts)
     cap = min(max_length, ctx)
-    V = meta.vocab_size
-    needs_history = _needs_history(proc_opts)
 
-    width = phases[0]  # the tables' size on this rung
-    with span("fwt.decode.prefill"):
-        first_logits, cache0, no_speech_prob = _prefill(
-            params, config, meta, xa, prompt, prompt_len, sot_pos, width
-        )
-        self_k, self_v, cross_k, cross_v = _expand_caches(
-            cache0, K, gen_opts.kv_int8, cross_qmax=7 if gen_opts.int4 else 127
-        )
+    graph = None if graphs is None else graphs.take(params, config, gen_opts, proc_opts, meta, b, dev)
+    try:
+        with span("fwt.decode.prefill"):
+            no_speech_prob, st = _begin(
+                None if graph is None else graph.state, params, config, gen_opts, meta,
+                xa, prompt, prompt_len, sot_pos, cap,
+            )
+            if graph is not None:
+                graph.state = st
 
-    k_arange = torch.arange(K, device=dev)
-    cur_len = prompt_len.clone()  # (B,) shared by all beams of a row
-    sum_lp = torch.where(k_arange == 0, 0.0, NEG_INF)[None, :].expand(b, K).float()
-    # anc[b, k, c]: the slot holding the K/V written at position c for the
-    # chain now owned by beam k.
-    anc = k_arange.int()[None, :, None].expand(b, K, width).contiguous()
-    cur_logits = first_logits[:, None, :].expand(b, K, V)
-    hist_tok = torch.zeros((b, width, K), dtype=torch.long, device=dev)
-    hist_par = torch.zeros_like(hist_tok)
-    last_tok = torch.zeros((b, K), dtype=torch.long, device=dev)
-    penult_tok = torch.zeros_like(last_tok)
-    ts_max = torch.full((b, K), -1, dtype=torch.long, device=dev)
-    eot_buf_score = torch.full((b, width, 2 * K), NEG_INF, device=dev)
-    eot_buf_slot = torch.zeros((b, width, 2 * K), dtype=torch.long, device=dev)
-    len_buf = torch.zeros((b, width), dtype=torch.long, device=dev)
-    nfin = torch.zeros((b,), dtype=torch.long, device=dev)
-    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        def step(step_span="fwt.decode.step"):
+            _beam_step(st, params, config, gen_opts, proc_opts, meta, step_span)
 
-    ctx_ids = torch.arange(width, device=dev)
-    step_i, rung = 0, 0
-    while True:
-        if rung + 1 < len(phases) and step_i == phases[rung] - p:
-            # The next rung: pad with what a fresh table holds (an ancestry
-            # pad of 0 is a valid slot, written before it is read).
-            rung += 1
-            width = phases[rung]
-            with span("fwt.decode.ladder"):
-                self_k = _grow_cache(self_k, width)
-                self_v = _grow_cache(self_v, width)
-                anc = _pad_ctx(anc, 2, width)
-                hist_tok, hist_par = _pad_ctx(hist_tok, 1, width), _pad_ctx(hist_par, 1, width)
-                eot_buf_score = _pad_ctx(eot_buf_score, 1, width, NEG_INF)
-                eot_buf_slot = _pad_ctx(eot_buf_slot, 1, width)
-                len_buf = _pad_ctx(len_buf, 1, width)
-                ctx_ids = torch.arange(width, device=dev)
-        with span("fwt.decode.select"):
-            live = ~done
-            n_sampled = cur_len - prompt_len  # (B,)
-            if needs_history:
-                view = _tokens_view(hist_tok, anc)
-                logprobs = apply_logits_rules_logprobs(
-                    cur_logits.reshape(b * K, V),
-                    view.reshape(b * K, width),
-                    cur_len[:, None].expand(b, K).reshape(-1),
-                    prompt_len[:, None].expand(b, K).reshape(-1),
-                    meta,
-                    proc_opts,
-                ).reshape(b, K, V)
+        first = True
+        while True:
+            if graph is not None and graph.step is None and not first and dev.type == "cuda":
+                with span("fwt.decode.capture"):
+                    graph.step = _Captured(lambda: step(None), dev)
+            if graph is not None and graph.step is not None:
+                with span("fwt.decode.step"):
+                    graph.step.replay()
             else:
-                logprobs = apply_logits_rules_logprobs_carried(
-                    cur_logits.reshape(b * K, V),
-                    n_sampled[:, None].expand(b, K).reshape(-1),
-                    last_tok.reshape(-1),
-                    penult_tok.reshape(-1),
-                    ts_max.reshape(-1),
-                    meta,
-                    proc_opts,
-                ).reshape(b, K, V)
+                step()
+            first = False
+            _fire_after_first_launch()
+            with span("fwt.decode.stop"):
+                stop = bool(st.stop)
+            if stop:
+                break
 
-            total = sum_lp[:, :, None] + logprobs  # (B, K, V)
-            cand_val, cand_idx = torch.topk(total.reshape(b, K * V), 2 * K)
-            cand_beam = cand_idx // V  # (B, 2K)
-            cand_tok = cand_idx % V
-            is_eot = cand_tok == meta.eot
+        flat_scores = st.eot_buf_score.reshape(b, ctx * 2 * K)
+        fin_scores, top_idx = torch.topk(flat_scores, F)
+        fin_slot = torch.gather(st.eot_buf_slot.reshape(b, ctx * 2 * K), 1, top_idx)
+        fin_lens = torch.gather(st.len_buf, 1, top_idx // (2 * K))
 
-            # Record this step's end-of-text candidates; the pool is merged once
-            # after the loop.  Until the pool holds F entries every valid
-            # candidate takes a free place, so min(F, nfin + #valid) is its size.
-            safe_len = n_sampled.clamp(min=1).float()[:, None]
-            norm_score = cand_val / safe_len ** lp_pow
-            eot_valid = is_eot & live[:, None]
-            eot_scores = torch.where(eot_valid, norm_score, NEG_INF)
-            eot_buf_score[:, step_i] = torch.where(live[:, None], eot_scores, eot_buf_score[:, step_i])
-            eot_buf_slot[:, step_i] = torch.where(live[:, None], cand_beam, eot_buf_slot[:, step_i])
-            len_buf[:, step_i] = torch.where(live, cur_len, len_buf[:, step_i])
-            nfin = torch.clamp(nfin + eot_valid.sum(dim=1), max=F)
+        # The best active beam is the fallback of rows whose pool stayed empty.
+        gen_len = (st.cur_len - prompt_len).clamp(min=1).float()
+        active_score = st.sum_lp[:, 0] / gen_len ** gen_opts.length_penalty
 
-            # Refill the active beams with the best K non-eot candidates, in
-            # score order.
-            keep = ~is_eot
-            rank = torch.cumsum(keep.long(), dim=1)  # 1-based among kept
-            slot = torch.where(keep & (rank <= K), rank - 1, K)  # K = drop
-            parent = _scatter_slots(cand_beam, slot, K, 0)
-            new_tok = _scatter_slots(cand_tok, slot, K, 0)
-            new_cum = _scatter_slots(cand_val, slot, K, NEG_INF)
-
-            # History tables; finished rows must not overwrite theirs.
-            write_pos = cur_len.clamp(0, width - 1)  # (B,)
-            hit = (ctx_ids[None, :, None] == write_pos[:, None, None]) & live[:, None, None]
-            hist_tok = torch.where(hit, new_tok[:, None, :], hist_tok)
-            hist_par = torch.where(hit, parent[:, None, :], hist_par)
-
-            # Carried rule scalars follow the re-parenting.
-            penult_new = _gather_rows(last_tok, parent)
-            ts_prev = _gather_rows(ts_max, parent)
-            ts_new = torch.where(
-                new_tok >= meta.timestamp_begin, torch.maximum(ts_prev, new_tok), ts_prev
-            )
-
-            # Virtual re-parenting: permute the ancestry table; the new token's
-            # K/V go to each beam's own slot in the decoder step below.
-            write_pos_bk = write_pos[:, None].expand(b, K)
-            anc = _gather_rows(anc, parent)
-            anc = torch.where(
-                ctx_ids[None, None, :] == write_pos_bk[:, :, None],
-                k_arange.int()[None, :, None],
-                anc,
-            ).contiguous()
-
-        # Finished rows decode garbage at a frozen position: their slots
-        # and logits are never read again.
-        with span("fwt.decode.step"):
-            cur_logits, self_k, self_v = _gen_decoder_step(
-                params, config, new_tok, write_pos_bk, write_pos.int(),
-                self_k, self_v, cross_k, cross_v, anc,
-            )
-
-        cur_len_new = torch.clamp(cur_len + 1, max=ctx)
-        done_new = done | (nfin >= F) | (cur_len_new >= cap)
-        cur_len = torch.where(done, cur_len, cur_len_new)
-        sum_lp = torch.where(done[:, None], sum_lp, new_cum)
-        last_tok, penult_tok, ts_max = new_tok, penult_new, ts_new
-        done = done_new
-        step_i += 1
-        _fire_after_first_launch()
-        with span("fwt.decode.stop"):
-            stop = bool(done.all())
-        if stop:
-            break
-
-    # A loop that ended on an early rung hands back full tables.
-    hist_tok, hist_par = _pad_ctx(hist_tok, 1, ctx), _pad_ctx(hist_par, 1, ctx)
-    eot_buf_score = _pad_ctx(eot_buf_score, 1, ctx, NEG_INF)
-    eot_buf_slot = _pad_ctx(eot_buf_slot, 1, ctx)
-    len_buf = _pad_ctx(len_buf, 1, ctx)
-    flat_scores = eot_buf_score.reshape(b, ctx * 2 * K)
-    fin_scores, top_idx = torch.topk(flat_scores, F)
-    fin_slot = torch.gather(eot_buf_slot.reshape(b, ctx * 2 * K), 1, top_idx)
-    fin_lens = torch.gather(len_buf, 1, top_idx // (2 * K))
-
-    # The best active beam is the fallback of rows whose pool stayed empty.
-    gen_len = (cur_len - prompt_len).clamp(min=1).float()
-    active_score = sum_lp[:, 0] / gen_len ** lp_pow
-
-    return (
-        hist_tok, hist_par, fin_slot, fin_lens, fin_scores, cur_len,
-        active_score, no_speech_prob, prompt_len,
-    )
+        # Copies: the next decode of the key rewrites the state, and the
+        # pipeline may dispatch it before it collects this one.
+        return (
+            st.hist_tok.clone(), st.hist_par.clone(), fin_slot, fin_lens, fin_scores,
+            st.cur_len.clone(), active_score, no_speech_prob, prompt_len,
+        )
+    finally:
+        if graph is not None:
+            graphs.release(graph)
 
 
 # ---------------------------------------------------------------------------
@@ -591,31 +755,26 @@ def sample(
     from ``generators[i]`` at ``temperature[i]``, so a batched fallback
     ladder (rows = rungs) draws what each rung would draw alone.
 
-    The loop runs rung by rung of the ctx ladder, as ``beam_search``'s: a
-    sample's length grows by at most one a step, so lens <= P + step.
-
     Returns (tokens (B,K,ctx), lens (B,K), cum_logprob (B,K),
     finished (B,K), no_speech_prob (B,))."""
     K = gen_opts.beam_size
     b, p = prompt.shape
     dev = xa.device
     ctx = min(gen_opts.ctx_cap, config.n_text_ctx)
-    phases = _ctx_phases(p, ctx, gen_opts)
     cap = min(max_length, ctx)
     V = meta.vocab_size
     needs_history = _needs_history(proc_opts)
 
-    width = phases[0]  # the tables' size on this rung
     with span("fwt.decode.prefill"):
         first_logits, cache0, no_speech_prob = _prefill(
-            params, config, meta, xa, prompt, prompt_len, sot_pos, width
+            params, config, meta, xa, prompt, prompt_len, sot_pos, ctx
         )
         self_k, self_v, cross_k, cross_v = _expand_caches(
             cache0, K, gen_opts.kv_int8, cross_qmax=7 if gen_opts.int4 else 127
         )
 
-    ctx_ids = torch.arange(width, device=dev)
-    tokens = torch.zeros((b, K, width), dtype=torch.long, device=dev)
+    ctx_ids = torch.arange(ctx, device=dev)
+    tokens = torch.zeros((b, K, ctx), dtype=torch.long, device=dev)
     tokens[:, :, :p] = prompt[:, None, :]
     lens = prompt_len[:, None].expand(b, K).clone()
     sum_lp = torch.zeros((b, K), device=dev)
@@ -625,21 +784,8 @@ def sample(
     ts_max = torch.full((b, K), -1, dtype=torch.long, device=dev)
     cur_logits = first_logits[:, None, :].expand(b, K, V)
     # Identity ancestry: each sample attends only its own cache slot.
-    def identity_anc(width):
-        return torch.arange(K, dtype=torch.int32, device=dev)[None, :, None].expand(b, K, width).contiguous()
-
-    anc_id = identity_anc(width)
-    step_i, rung = 0, 0
+    anc_id = torch.arange(K, dtype=torch.int32, device=dev)[None, :, None].expand(b, K, ctx).contiguous()
     while True:
-        if rung + 1 < len(phases) and step_i == phases[rung] - p:
-            rung += 1
-            width = phases[rung]
-            with span("fwt.decode.ladder"):
-                self_k = _grow_cache(self_k, width)
-                self_v = _grow_cache(self_v, width)
-                tokens = _pad_ctx(tokens, 2, width)
-                anc_id = identity_anc(width)
-                ctx_ids = torch.arange(width, device=dev)
         active = ~finished & (lens < cap)
         _fire_after_first_launch()
         with span("fwt.decode.stop"):
@@ -650,7 +796,7 @@ def sample(
             if needs_history:
                 logprobs = apply_logits_rules_logprobs(
                     cur_logits.reshape(b * K, V),
-                    tokens.reshape(b * K, width),
+                    tokens.reshape(b * K, ctx),
                     lens.reshape(-1),
                     prompt_len[:, None].expand(b, K).reshape(-1),
                     meta,
@@ -685,7 +831,7 @@ def sample(
             tok_lp = torch.gather(logprobs, 2, next_tok[:, :, None])[:, :, 0]
             sum_lp = sum_lp + torch.where(active, tok_lp, 0.0)
 
-            write_pos = lens.clamp(0, width - 1)  # (B, K) position of the new token
+            write_pos = lens.clamp(0, ctx - 1)  # (B, K) position of the new token
             is_eot = next_tok == meta.eot
             # eot is recorded in the buffer but not counted in the length
             hit = ctx_ids[None, None, :] == write_pos[:, :, None]
@@ -711,9 +857,8 @@ def sample(
                 write_pos.max(dim=1).values.int(), self_k, self_v, cross_k,
                 cross_v, anc_id,
             )
-        step_i += 1
 
-    return _pad_ctx(tokens, 2, ctx), lens, sum_lp, finished, no_speech_prob
+    return tokens, lens, sum_lp, finished, no_speech_prob
 
 
 # ---------------------------------------------------------------------------
@@ -774,9 +919,12 @@ def generate_dispatch(
     rng_seed: Optional[Union[int, Sequence[int]]] = None,
     kv_int8: bool = False,
     int4: bool = False,
+    graphs: Optional[StepGraphs] = None,
 ) -> PendingGeneration:
     """Run a generation on ``encoder_output``'s device and return its
-    tensors; ``generate_collect`` unpacks them.  A per-row sequence of
+    tensors; ``generate_collect`` unpacks them.  A beam search runs on its
+    key's step graph in ``graphs`` (the engine's), else eagerly on a state
+    of its own.  A per-row sequence of
     temperatures runs one sampling row per temperature (the batched
     fallback ladder).  ``kv_int8`` decodes over int8 self and cross
     caches; ``int4`` (which needs ``kv_int8``: ``GenOptions`` raises
@@ -836,7 +984,6 @@ def generate_dispatch(
                 ctx_cap=ctx_cap,
                 kv_int8=kv_int8,
                 int4=int4,
-                multi_phase=_multi_phase_default(),
             )
             generators = []
             for seed in _row_seeds(rng_seed, b):
@@ -857,11 +1004,10 @@ def generate_dispatch(
             ctx_cap=ctx_cap,
             kv_int8=kv_int8,
             int4=int4,
-            multi_phase=_multi_phase_default(),
         )
         arrays = beam_search(
             params, config, gen_opts, proc_opts, meta, encoder_output,
-            t(prompt_arr), t(prompt_lens), t(sot_pos), max_length,
+            t(prompt_arr), t(prompt_lens), t(sot_pos), max_length, graphs,
         )
     return PendingGeneration("beam", arrays, prompt_lens, length_penalty)
 

@@ -10,7 +10,9 @@ timestamp").  Functions take logits (R, V) f32 and per-row integers, and
 return log-probabilities.
 """
 
+import contextlib
 import functools
+import threading
 
 from dataclasses import dataclass
 from typing import Tuple
@@ -53,13 +55,38 @@ def _id_mask(ids: Tuple[int, ...], v: int, device: torch.device) -> torch.Tensor
     return mask
 
 
+_kept = threading.local()  # .masks: this thread's list while a CUDA graph is captured
+
+
+@contextlib.contextmanager
+def masks_kept():
+    """Within the block, each mask this thread's rules read is added to
+    the yielded list.  A captured CUDA graph reads its masks at their
+    addresses on every replay, so it keeps them alive: ``_id_mask``'s
+    cache may drop a mask, and the allocator reuse its memory, while the
+    graph lives."""
+    _kept.masks = masks = []
+    try:
+        yield masks
+    finally:
+        _kept.masks = None
+
+
+def _mask(ids: Tuple[int, ...], v: int, device: torch.device) -> torch.Tensor:
+    mask = _id_mask(ids, v, device)
+    masks = getattr(_kept, "masks", None)
+    if masks is not None:
+        masks.append(mask)
+    return mask
+
+
 def _static_masks(logits, at_begin, meta: TokenMeta, opts: ProcessorOptions):
     v = logits.shape[1]
     if opts.suppress_tokens:
-        mask = _id_mask(tuple(opts.suppress_tokens), v, logits.device)
+        mask = _mask(tuple(opts.suppress_tokens), v, logits.device)
         logits = torch.where(mask[None, :], NEG_INF, logits)
     if opts.suppress_blank and meta.blank:
-        mask = _id_mask(tuple(meta.blank) + (meta.eot,), v, logits.device)
+        mask = _mask(tuple(meta.blank) + (meta.eot,), v, logits.device)
         logits = torch.where(at_begin & mask[None, :], NEG_INF, logits)
     return logits
 

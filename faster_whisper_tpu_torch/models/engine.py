@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from faster_whisper_tpu_torch.generation.generate import (
+    StepGraphs,
     WhisperGenerationResult,
     _row_seeds,
     generate_collect,
@@ -417,6 +418,8 @@ class WhisperEngine:
         self.replicas: List[Tuple[torch.device, dict]] = [(self.device, params)]
         self.replica_batches: List[int] = [0]  # shards each replica decoded
         self.mesh = None
+        # the beam search's CUDA graphs, with their states and pools
+        self.step_graphs = StepGraphs()
         # the seed of a sampling call that passes none; None draws fresh
         # entropy per call, as CT2 does (``validate --mock`` fixes it)
         self.rng_seed: Optional[int] = None
@@ -451,6 +454,7 @@ class WhisperEngine:
             self.params = self.replicas[0][1]
         self.replica_batches = [0] * len(rows)
         self.mesh = mesh
+        self.step_graphs = StepGraphs()
 
     def group_devices(self, replica: int = 0) -> List[torch.device]:
         """The devices of a replica's model-axis group, its lead's first
@@ -581,6 +585,7 @@ class WhisperEngine:
             with_timestamps=self.meta.no_timestamps not in prompts[0],
             kv_int8=self.kv_int8,
             int4=self.int4,
+            graphs=self.step_graphs,
         )
         if not isinstance(encoder_output, ShardedStates):
             replica = self._replica_of(encoder_output.device)

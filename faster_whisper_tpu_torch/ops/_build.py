@@ -20,6 +20,7 @@ and the FLAC, DTW and VAD libraries never fall back to a plain version
 (``media_native.py`` passes its build error on to ``decode_audio``).
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -109,12 +110,39 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _count_lock = threading.Lock()
 
 
+_apart = threading.local()  # .counts: this thread's counts while a CUDA graph is captured
+
+
 def count(fn, attr: str = "launches") -> None:
     """Add one to ``fn.<attr>``, a wrapper's launch count (or a call
     count), under a lock: the replicas of a mesh launch from several host
-    threads at once."""
+    threads at once.  Inside ``counted_apart`` the count goes to its
+    record instead: a capture launches nothing."""
+    counts = getattr(_apart, "counts", None)
+    if counts is not None:
+        counts[(fn, attr)] = counts.get((fn, attr), 0) + 1
+        return
     with _count_lock:
         setattr(fn, attr, getattr(fn, attr) + 1)
+
+
+@contextlib.contextmanager
+def counted_apart():
+    """Within the block, this thread's ``count`` calls go to the yielded
+    record, {(fn, attr): n}, and not to the counters: what a captured CUDA
+    graph's launches count, which each replay adds (``add_counts``)."""
+    _apart.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _apart.counts = None
+
+
+def add_counts(counts) -> None:
+    """Add a ``counted_apart`` record to the counters."""
+    with _count_lock:
+        for (fn, attr), n in counts.items():
+            setattr(fn, attr, getattr(fn, attr) + n)
 
 
 def _nvcc() -> str:

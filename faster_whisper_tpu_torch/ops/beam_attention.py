@@ -57,7 +57,7 @@ def _split_plan(k: int, ctx: int, row_bytes: int) -> Tuple[int, int]:
     the heads, the card's SM count, ctx or the write position: a larger
     batch or more heads only add blocks, and a row's softmax partials merge
     in the same order whatever the batch bucket, the heads of a
-    ``tensor_parallel`` shard, the card or the ctx ladder's rung.  At K=5
+    ``tensor_parallel`` shard, the card or the table's width.  At K=5
     with bf16 or int8 rows: 14 chunks of 32 at ctx=448 (280 blocks at B=1,
     H=20; 2240 at B=8)."""
     if min(k, ctx, row_bytes) < 1:
@@ -94,8 +94,8 @@ def beam_attend_append(
     allocates only its output: scratch and ticket counters are kept per
     device.  The column chunks (``_split_plan``) do not depend on B, H or
     ctx, so a row's output is the same bits in any batch, as a slice of
-    its heads, and on every rung of the ctx ladder (whose merge reads only
-    the chunks up to ``pos_row``).  On a CPU tensor:
+    its heads, and in a table of any width (whose merge reads only the
+    chunks up to ``pos_row``).  On a CPU tensor:
     ``beam_attend_append_ref``, which honours ``pos_bk``."""
     if not q.is_cuda:
         if q.device.type != "cpu":

@@ -26,10 +26,15 @@ before it.  A span synchronizes nothing.
 The spans, each where its work happens: ``fwt.vad``, ``fwt.mel``,
 ``fwt.encode``, ``fwt.decode.prefill``, ``fwt.decode.select``,
 ``fwt.decode.step``, ``fwt.decode.logits`` (inside the step),
-``fwt.int8_dense`` (every W8A8 product), ``fwt.decode.ladder``,
+``fwt.int8_dense`` (every W8A8 product), ``fwt.decode.capture``,
 ``fwt.decode.stop``, ``fwt.collect``, ``fwt.pipeline.chunks``,
 ``fwt.pipeline.segments`` and ``fwt.all_reduce``.  Every name starts with
-``fwt.``, and no span stays open across a ``yield``.
+``fwt.``, and no span stays open across a ``yield``.  A beam-search step
+replayed from its CUDA graph on the card is one ``fwt.decode.step``
+around the replay: the spans inside the step (``fwt.decode.select``,
+``fwt.decode.logits``, ``fwt.int8_dense``) open once, when the step is
+captured (``fwt.decode.capture``), and a device operation of a replay
+belongs to ``fwt.decode.step``.
 
 ``phase`` keeps the cold-start stamps of ``FWT_PHASE_LOG=1`` under the
 JAX package's phase names: a span given a phase prints that phase's line

@@ -10,7 +10,9 @@ under ``tensor_parallel=2``; the LayerNorm kernel against its plain
 version, a row's bits alone and among 10 to 12000 rows, and the int8
 pipeline at large-v3-turbo width giving equal segments at batch 8 and at
 batch 2; P2b bit for bit equal to its exact int64 reference; the
-whole-file log-mel on the card against the host path.  Skips without
+whole-file log-mel on the card against the host path; a decode replayed
+from its step graph bit-equal to the eager one at the benchmark cells'
+widths, and two threads decoding one key at once.  Skips without
 a card; on the card run
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -362,25 +364,19 @@ def test_probe_wrappers_count_launches_and_reject_what_the_kernels_do_not_take(c
 
 
 def test_the_ctx_ladder_and_the_mesh_on_the_card(card):
-    """A small model at bf16: the ladder off and on give equal segments,
-    and the pipeline on ``device_index=[0, 0]`` gives one device's."""
+    """A small model at bf16: every decode on one table of its ctx cap (the
+    port runs no ctx ladder), and the pipeline on ``device_index=[0, 0]``
+    gives one device's segments."""
     from faster_whisper_tpu_torch.transcribe import BatchedInferencePipeline, WhisperModel
 
     cfg, cpu, tok = chip_smoke.small_model_parts()
     model = WhisperModel.from_parts(cpu, cfg, tok, compute_type="bfloat16", device="cuda")
     audio = chip_smoke.synth_audio(40.0, seed=4)
-    rows = {}
-    for flag in ("0", "1"):
-        os.environ["FWT_MULTI_PHASE"] = flag
-        try:
-            with chip_smoke.RungProbe() as rungs:
-                segments = model.transcribe(audio, language="en", beam_size=5, max_new_tokens=150,
-                                            temperature=0.0, suppress_tokens=chip_smoke.SMALL_SPECIALS)[0]
-                rows[flag] = [(s.seek, s.tokens, s.avg_logprob) for s in segments]
-        finally:
-            os.environ.pop("FWT_MULTI_PHASE")
-        assert bool(rungs.grown) == (flag == "1")
-    assert rows["0"] == rows["1"]
+    with chip_smoke.WidthProbe() as tables:
+        segments = model.transcribe(audio, language="en", beam_size=5, max_new_tokens=150,
+                                    temperature=0.0, suppress_tokens=chip_smoke.SMALL_SPECIALS)[0]
+        assert list(segments)
+    assert tables.widths and tables.widths == tables.caps
     _, speech = chip_smoke.tiled_speech(66.0)
     mesh = WhisperModel.from_parts(cpu, cfg, tok, compute_type="bfloat16", device="cuda",
                                    device_index=[0, 0])
@@ -585,3 +581,91 @@ def test_device_log_mel_matches_the_host_path(card):
     errs = chip_smoke.check_device_log_mel(card, lengths=(479990, chip_smoke.P_SAMPLES))
     assert set(errs) == {479990, chip_smoke.P_SAMPLES}
     assert max(errs.values()) <= chip_smoke.LOG_MEL_TOL
+
+
+def _results(results):
+    return [(r.sequences_ids, r.scores, r.no_speech_prob) for r in results]
+
+
+@pytest.mark.parametrize("size,compute_type,rows", [("large-v3", "int8", 8), ("large-v3-turbo", "bfloat16", 16)])
+@pytest.mark.parametrize("timestamps", [False, True])
+def test_a_replayed_beam_step_gives_the_eager_decode_bit_for_bit(card, size, compute_type, rows, timestamps):
+    """At the widths of the benchmark cells' models and batches, four
+    decoder layers, random weights: a decode replayed from its captured
+    step gives the eager decode's tables, tokens, scores and no-speech
+    probabilities bit for bit, with the same counts."""
+    model = chip_smoke.graph_model(size, compute_type, decoder_layers=4)
+    xa, prompts, kwargs = chip_smoke.graph_decode_inputs(model, rows, seed=5, timestamps=timestamps)
+    model.model.generate(xa, prompts, **kwargs)  # its first step eager, then the capture
+    sides = chip_smoke.graph_decode_pair(model, xa, prompts, kwargs)
+    g, e = sides["graph"], sides["eager"]
+    assert all(torch.equal(a, b) for a, b in zip(g["pending"].arrays, e["pending"].arrays))
+    assert _results(g["results"]) == _results(e["results"])
+    assert g["counts"] == e["counts"] and g["counts"]["steps"] > 0
+
+
+def test_two_threads_decoding_one_key_at_once_both_finish_correct(card, monkeypatch):
+    """Thread a holds the key's step graph (it waits after its first step);
+    thread b decodes the same key meanwhile, eagerly on a state of its own;
+    both give what each gives alone."""
+    import threading
+
+    from faster_whisper_tpu_torch.generation import generate as G
+
+    model = chip_smoke.graph_model("large-v3-turbo", "bfloat16", decoder_layers=4)
+    eng = model.model
+    xa, prompts, kwargs = chip_smoke.graph_decode_inputs(model, 4, seed=6)
+    xb = chip_smoke.graph_decode_inputs(model, 4, seed=7)[0]
+    alone = {name: _results(eng.generate(x, prompts, **kwargs)) for name, x in (("a", xa), ("b", xb))}
+    assert alone["a"] != alone["b"]
+    taken, out = {}, {}
+    take = eng.step_graphs.take
+
+    def spy(*args):
+        taken[threading.current_thread().name] = graph = take(*args)
+        return graph
+
+    monkeypatch.setattr(eng.step_graphs, "take", spy)
+    in_loop, finished = threading.Event(), threading.Event()
+
+    def first():
+        with G.after_first_launch(lambda: (in_loop.set(), finished.wait(600))):
+            out["a"] = _results(eng.generate(xa, prompts, **kwargs))
+
+    def second():
+        try:
+            assert in_loop.wait(600)
+            out["b"] = _results(eng.generate(xb, prompts, **kwargs))
+        finally:
+            finished.set()
+
+    threads = [threading.Thread(target=first, name="a"), threading.Thread(target=second, name="b")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    assert taken["a"] is not None and taken["a"].step is not None and taken["b"] is None
+    assert out == alone
+
+
+def test_a_replay_reads_its_masks_after_the_mask_cache_drops_them(card):
+    """A captured step keeps the vocabulary masks it reads: with
+    ``_id_mask``'s cache cleared and the freed memory taken by all-true
+    masks of the vocabulary's size, a replayed decode suppressing tokens
+    gives what it gave before, bit for bit."""
+    import gc
+
+    from faster_whisper_tpu_torch.generation import processors as P
+
+    model = chip_smoke.graph_model("large-v3-turbo", "bfloat16", decoder_layers=2)
+    eng = model.model
+    xa, prompts, kwargs = chip_smoke.graph_decode_inputs(model, 2, seed=8)
+    kwargs = dict(kwargs, suppress_tokens=[eng.meta.no_speech, eng.meta.no_timestamps, 220, 11])
+    eng.generate(xa, prompts, **kwargs)  # its first step eager, then the capture
+    before = _results(eng.generate(xa, prompts, **kwargs))
+    assert [g.step is not None for g in eng.step_graphs.graphs()] == [True]
+    P._id_mask.cache_clear()
+    gc.collect()
+    refill = [torch.ones(eng.meta.vocab_size, dtype=torch.bool, device="cuda") for _ in range(256)]
+    assert _results(eng.generate(xa, prompts, **kwargs)) == before
+    del refill
