@@ -40,7 +40,9 @@ Phases, each printing its own line with its seconds:
    composition it replaced (``_quantize_rows``, ``torch._int_mm``,
    ``_rescale``) at 1 to 12000 rows, every width of large-v3's products
    and its padded logits head, bf16 and float32 inputs and outputs, with
-   and without a bias, a zero row and 4-bit-range codes;
+   and without a bias, a zero row and 4-bit-range codes, one launch per
+   call (a decode launch up to 64 rows, ``int8_dense.decode_launches``)
+   and one per ``int8_dense_many`` call of three weights up to 64 rows;
 4. times: each kernel form, its plain version and, where one exists, the
    one PyTorch call that computes the same function, on the card (CUDA
    events around the replay of a CUDA graph of 20 calls, L2 warm), each
@@ -53,7 +55,8 @@ Phases, each printing its own line with its seconds:
    and the SM count, at B=1 and B=8 with 20 heads and B=8 with 10, in
    turns, and a sweep of widths at B=8; LN at a decode step's 40 x 1280
    and an encode's 12000 x 1280 beside ``F.layer_norm``; the W8A8 kernel
-   at a decode step's four shapes (batch 8 x 5 beams) and an encode's
+   at a decode step's shapes (batch 8 x 5 beams: 1280 x 1280, mlp.w2,
+   mlp.w1, the logits head, and q, k, v as one call) and an encode's
    mlp.w1 beside the composition it replaced; and an empty kernel timed
    the same ways, the launch floor;
 5. VAD: ``docker/jfk.flac`` decoded by the port's ``decode_audio`` and
@@ -224,7 +227,9 @@ Phases, each printing its own line with its seconds:
     full batch's decode (and captures the step); that decode again,
     replayed and eagerly (``EagerSteps``), must give the same tables,
     tokens, scores and no-speech probabilities bit for bit and the same
-    counts, and the steps' host and device ms are printed both ways.
+    counts, and the steps' host and device ms are printed both ways; at
+    int8, one eager decode step's ``int8_dense.decode_launches /
+    int8_dense.launches`` must be 193 / 193 (6 a layer and the head).
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as the last line
@@ -829,9 +834,11 @@ W8A8_VARIANTS = (
     (torch.float32, torch.float32, torch.float32, 127),
     (torch.bfloat16, torch.bfloat16, None, 7),
 )
-# The main path's products, timed in phase 4: a decode step's at batch 8 x
-# 5 beams (attention, mlp.w2, mlp.w1, the logits head) and an encode's mlp.w1.
-W8A8_TIMED = ((40, 1280, 1280), (40, 5120, 1280), (40, 1280, 5120), (40, 1280, 51872), (12000, 1280, 5120))
+# The main path's products, timed in phase 4 as (m, k, n, weights a call):
+# a decode step's at batch 8 x 5 beams (attention, mlp.w2, mlp.w1, the
+# logits head, q, k and v in one call) and an encode's mlp.w1.
+W8A8_TIMED = ((40, 1280, 1280, 1), (40, 5120, 1280, 1), (40, 1280, 5120, 1), (40, 1280, 51872, 1),
+              (40, 1280, 1280, 3), (12000, 1280, 5120, 1))
 
 
 def w8a8_inputs(m, k, n, x_dtype=torch.bfloat16, bias_dtype=torch.bfloat16, qmax=127, seed=0):
@@ -866,28 +873,33 @@ def check_w8a8(rows=W8A8_ROWS, widths=W8A8_WIDTHS, variants=W8A8_VARIANTS):
     """The W8A8 kernel (``int8_dense`` on the card, ``csrc/w8a8.cu``)
     against the composition it replaced, ``torch.equal`` at every row
     count of ``rows``, width of ``widths`` and form of ``variants``, one
-    launch counted per call; and at each row count ``int8_dense_many`` on
-    three weights (one quantization of x) against three calls; returns the
-    number of products held."""
-    from faster_whisper_tpu_torch.ops.quant import _plan, int8_dense, int8_dense_many
+    launch counted per call (a decode launch up to 64 rows); and at each
+    row count ``int8_dense_many`` on three weights (one quantization of x;
+    one launch up to 64 rows, three above) against three calls; returns
+    the number of products held."""
+    from faster_whisper_tpu_torch.ops.quant import _plan, _slots, int8_dense, int8_dense_many
 
+    slots = _slots(torch.device("cuda", torch.cuda.current_device()))
     n_held, plans = 0, set()
     for m in rows:
         for k, n in widths:
             for i, (x_dtype, out_dtype, bias_dtype, qmax) in enumerate(variants):
                 x, w, b = w8a8_inputs(m, k, n, x_dtype, bias_dtype, qmax, seed=m + k + n + i)
-                before = int8_dense.launches
+                before = (int8_dense.launches, int8_dense.decode_launches)
                 got = int8_dense(x, w, b, out_dtype=out_dtype)
                 want = w8a8_composition(x, w, b, out_dtype)
                 torch.cuda.synchronize()
                 what = (f"W8A8 {m} x {k} @ {k} x {n}, x {dtype_name(x_dtype)}, out {dtype_name(out_dtype)}, "
                         f"bias {'none' if b is None else dtype_name(bias_dtype)}, qmax {qmax}")
-                if int8_dense.launches != before + 1:
-                    raise AssertionError(f"{what}: {int8_dense.launches - before} launches counted, not 1")
+                plan = _plan(m, k, (n,), slots)
+                counted = (int8_dense.launches - before[0], int8_dense.decode_launches - before[1])
+                if counted != (1, int(plan.decode)):
+                    raise AssertionError(f"{what}: (launches, decode launches) {counted} counted, not "
+                                         f"(1, {int(plan.decode)})")
                 if got.dtype != out_dtype or not torch.equal(got, want):
                     differ = int((got != want).sum()) if got.shape == want.shape else -1
                     raise AssertionError(f"{what}: {differ} of {want.numel()} values differ from the composition")
-                plans.add(_plan(m))
+                plans.add(tuple(plan))
                 n_held += 1
                 del x, w, b, got, want
         # one quantization of x for three weights (q, k, v), as the model's
@@ -897,32 +909,39 @@ def check_w8a8(rows=W8A8_ROWS, widths=W8A8_WIDTHS, variants=W8A8_VARIANTS):
         ws = [w, w8a8_inputs(1, k, n, seed=m + 8)[1], w8a8_inputs(1, k, n, seed=m + 9)[1]]
         before = int8_dense.launches
         many = int8_dense_many(x, ws, (b, None, b))
-        if int8_dense.launches != before + 3 or not all(
+        launches = 1 if _plan(m, k, (n,) * 3, slots).decode else 3
+        if int8_dense.launches != before + launches or not all(
                 torch.equal(y, int8_dense(x, wi, bi)) for y, wi, bi in zip(many, ws, (b, None, b))):
-            raise AssertionError(f"W8A8 {m} x {k}: one quantization for three weights differs from three calls")
+            raise AssertionError(f"W8A8 {m} x {k}: one quantization for three weights differs from three calls "
+                                 f"or took {int8_dense.launches - before} launches, not {launches}")
         n_held += 3
     torch.cuda.empty_cache()
     print(f"W8A8: {n_held} products bit-equal to the composition (_quantize_rows, torch._int_mm, _rescale) "
-          f"over {len(plans)} plans (swap, bn): " + ", ".join(str(p) for p in sorted(plans)))
+          f"over {len(plans)} plans (decode, bn, cluster, clusters): " + ", ".join(str(p) for p in sorted(plans)))
     return n_held
 
 
-def time_w8a8(m, k, n):
-    """The W8A8 kernel on a bf16 x (m, k) and a (k, n) weight with a bf16
-    bias (float32 scores and no bias for the logits head's n > 5120), the
-    composition it replaced as both the plain version and the library
-    call; bound: the weight's codes, x, the output and the scales moved
-    once, beside 2 m k n int8 operations."""
-    from faster_whisper_tpu_torch.ops.quant import _plan, int8_dense
+def time_w8a8(m, k, n, weights=1):
+    """The W8A8 kernel on a bf16 x (m, k) and ``weights`` (k, n) weights in
+    one ``int8_dense_many`` call (the self-attention's q, k and v: three),
+    each with a bf16 bias (float32 scores and no bias for the logits
+    head's n > 5120), the composition it replaced as both the plain version
+    and the library call; bound: the weights' codes, x, the outputs and the
+    scales moved once, beside 2 m k n int8 operations a weight."""
+    from faster_whisper_tpu_torch.ops.quant import _plan, _slots, int8_dense_many
 
     head = n > 5120
     out_dtype = torch.float32 if head else torch.bfloat16
     x, w, b = w8a8_inputs(m, k, n, bias_dtype=None if head else torch.bfloat16, seed=7)
-    t = _timed(lambda: int8_dense(x, w, b, out_dtype=out_dtype),
-               lambda: w8a8_composition(x, w, b, out_dtype), lambda: w8a8_composition(x, w, b, out_dtype))
-    nbytes = k * n + 2 * m * k + m * n * (4 if head else 2) + 4 * n + (0 if head else 2 * n)
-    t["bound_ms"], t["bound_by"] = bound(nbytes, 2 * m * k * n, INT8_TENSOR_OPS)
-    t["shape"] = f"{m} x {k} @ {k} x {n}, {dtype_name(out_dtype)} out, plan (swap, bn) {_plan(m)}"
+    ws, bs = [w] * weights, [b] * weights
+    t = _timed(lambda: int8_dense_many(x, ws, bs, out_dtype=out_dtype),
+               lambda: [w8a8_composition(x, w, b, out_dtype) for _ in ws],
+               lambda: [w8a8_composition(x, w, b, out_dtype) for _ in ws])
+    nbytes = weights * (k * n + m * n * (4 if head else 2) + 4 * n + (0 if head else 2 * n)) + 2 * m * k
+    t["bound_ms"], t["bound_by"] = bound(nbytes, 2 * m * k * n * weights, INT8_TENSOR_OPS)
+    plan = _plan(m, k, (n,) * weights, _slots(x.device))
+    t["shape"] = (f"{m} x {k} @ {'%d x ' % weights if weights > 1 else ''}{k} x {n}, {dtype_name(out_dtype)} "
+                  f"out, plan (decode, bn, cluster, clusters) {tuple(plan)}")
     return t
 
 
@@ -4203,6 +4222,29 @@ def graph_decode_inputs(model, rows, seed=0, timestamps=False):
     return xa, [prompt] * rows, dict(beam_size=5, max_length=len(prompt) + 128)
 
 
+def check_decode_step_launches(model, xa, card):
+    """One eager decode step of ``model`` (int8) over the encoder states
+    ``xa`` (B, 1500, d), B x 5 beams: every W8A8 launch of the step is a
+    decode launch, one per ``int8_dense_many`` call (6 a decoder layer and
+    the logits head); prints ``int8_dense.decode_launches /
+    int8_dense.launches``."""
+    from faster_whisper_tpu_torch.ops.quant import int8_dense
+
+    marks = []
+    g = torch.Generator(device="cuda").manual_seed(24)
+    tok0 = torch.randint(0, 256, (xa.shape[0],), generator=g, device="cuda")
+    _one_step_logits(model, xa, tok0, before_step=lambda: marks.append((int8_dense.launches,
+                                                                        int8_dense.decode_launches)))
+    torch.cuda.synchronize()
+    launches, decode = int8_dense.launches - marks[0][0], int8_dense.decode_launches - marks[0][1]
+    want = 6 * model.model.config.n_text_layer + 1
+    print(f"one int8 decode step, batch {xa.shape[0]} x 5 beams: int8_dense.decode_launches / "
+          f"int8_dense.launches = {decode} / {launches} (expected {want} / {want}) on {card}")
+    if not decode == launches == want:
+        raise AssertionError(f"the decode step launched {launches} W8A8 products, {decode} of the decode plan, "
+                             f"not {want} of {want}")
+
+
 def run_step_graphs(card):
     """Phase 16 (``STEP_GRAPH_CELLS``): for each cell, random weights at
     the size's published widths, the batched pipeline over tiled speech
@@ -4267,6 +4309,8 @@ def run_step_graphs(card):
             raise AssertionError(f"{size}: the replayed decode's counts {g['counts']} are not "
                                  f"{cfg.n_text_layer} a step of {per_step} and the decoder's LayerNorms")
         runs[f"step graph {size}"] = g["counts"]
+        if compute_type == "int8":
+            check_decode_step_launches(model, xa, card)
         del model, eng, xa, calls, full, sides, g, e
         torch.cuda.empty_cache()
     return runs
@@ -4348,8 +4392,8 @@ def main():
                             ("LN f32", 40, f32), ("LN f32 encode", 12000, f32)):
         times[label] = time_layer_norm(m, dtype=dtype)
         print_times(label, times[label], card)
-    for m, k, n in W8A8_TIMED:
-        t = time_w8a8(m, k, n)
+    for m, k, n, weights in W8A8_TIMED:
+        t = time_w8a8(m, k, n, weights)
         times.setdefault("W8A8", t)  # the table's: a decode step's attention product
         print_times("W8A8", t, card)
     floor = time_empty()

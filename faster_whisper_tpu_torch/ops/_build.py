@@ -74,7 +74,10 @@ SIGNATURES = {
         "fwt_empty": [_P],
     },
     "w8a8.cu": {
-        "fwt_w8a8_dense": [_P, _I, _L, _I, _I, _P, _L, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _P],
+        "fwt_w8a8_dense": [_P, _I, _L, _I, _I, _P, _L, _I, _P, _P, _I, _P, _I, _P, _I, _P],
+        "fwt_w8a8_decode": [_P, _I, _L, _I, _I, _I, _I] + [_P, _L, _I, _P, _P, _I, _P] * 3 + [_P] + [_I] * 3 + [_P],
+        "fwt_w8a8_state_bytes": [],
+        "fwt_w8a8_cluster_slots": [_I, ctypes.POINTER(_I)],
     },
     "probes.cu": {
         "fwt_attend_only_int8": [_P] * 10 + [_I] * 6 + [_F, _P],

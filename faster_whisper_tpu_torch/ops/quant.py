@@ -14,11 +14,15 @@ Counterpart of ``faster_whisper_tpu/ops/quant.py``:
 
 On the card, a weight with per-channel scales takes the hand-written
 kernel of ``csrc/w8a8.cu`` (``int8_dense``, counted in
-``int8_dense.launches``): the row quantization, then the int8 product on
-``wgmma`` with the rescale in its epilogue, two launches that give the
-bits of the PyTorch composition ``_quantize_rows``, ``_int_mm``,
-``_rescale``.  Its codes are laid out for it when they are made on the
-card (``card_layout``).  ``torch._int_mm`` remains only on the
+``int8_dense.launches``), which gives the bits of the PyTorch composition
+``_quantize_rows``, ``_int_mm``, ``_rescale``: up to 64 rows of x, one
+launch for x and up to three weights that quantizes x inside, once for the
+grid, and splits each weight tile's contraction over a thread-block
+cluster where the card has the room (``int8_dense.decode_launches``; its
+state, x's codes and a counter, is one buffer a device, ``_state``);
+above, the row quantization, then the int8 product on ``wgmma`` with the
+rescale in its epilogue.  Its codes are laid out for it when they are made
+on the card (``card_layout``).  ``torch._int_mm`` remains only on the
 group-scale path (``_int8_product``) and the tensor-parallel one
 (``int8_dense_rows``); the CPU runs the composition, the plain version.
 
@@ -31,6 +35,8 @@ the tests run it under ``jit``); a product by a scalar is also what
 PyTorch's CUDA division by a scalar computes.  The two differ in the last
 bit for a few percent of rows.
 """
+
+import ctypes
 
 from typing import NamedTuple, Optional
 
@@ -52,10 +58,18 @@ _SHORT_K = 128
 _SHORT_K_ROW_ALIGN = 32
 
 # csrc/w8a8.cu: the widths it takes (TMA rows 16-byte aligned, columns
-# stored in pairs) and the rows up to which it swaps its operands.
+# stored in vectors of 4 and pairs), the rows up to which it takes the
+# decode plan, and that plan's sizes: weight rows a tile, contraction bytes
+# a k-tile, CTAs a cluster at most (the portable cluster size), weights a
+# launch, and the bytes of x's codes a CTA may keep (XS_BYTES).
 _K_ALIGN = 16
 _N_ALIGN = 8
 _SMALL_M = 64
+_TILE_ROWS = 64
+_KT = 128
+_MAX_CLUSTER = 8
+_MAX_WEIGHTS = 3
+_XS_BYTES = 144 * 1024
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}  # x's or y's dtype -> the kernel's f32 flag
 
 
@@ -116,16 +130,74 @@ def card_layout(w: QuantizedLinear) -> QuantizedLinear:
     return QuantizedLinear(q.mT.contiguous().mT, w.s)
 
 
-def _plan(m: int) -> tuple:
-    """(swap, bn): how ``csrc/w8a8.cu`` tiles a product of ``m`` rows, from
-    the row count alone.  Up to 64 rows the weight is wgmma's 64-row A
-    operand and x's rows a B operand of ``bn`` = 16, 32 or 64 columns (the
-    weight streams, x rides along); above, 128-row tiles of x against 128
-    weight rows.  Both give the same bits (an int32 sum in any order, a
-    rescale per element)."""
+class W8A8Plan(NamedTuple):
+    """How ``csrc/w8a8.cu`` runs one launch (``_plan``)."""
+
+    decode: bool  # the decode plan: one launch, x quantized inside
+    bn: int  # x's rows in wgmma's B operand (decode), or the output tile's width (M > 64)
+    cluster: int  # CTAs a cluster, splitting each tile's k-tiles; 1: each CTA takes whole tiles
+    clusters: int  # clusters (CTAs for whole tiles) launched; 0: the kernel fills the card (M > 64)
+
+
+def _plan(m: int, k: int, ns, slots) -> W8A8Plan:
+    """The plan of one launch over ``m`` rows of x, a contraction of ``k``
+    and the weights' widths ``ns``, on a card that runs ``slots[c - 1]``
+    clusters of c decode CTAs at once (``_slots``: one CTA an SM): from the
+    shape and the card alone.
+
+    Above 64 rows, 128-row tiles of x against 128 weight rows, x quantized
+    by a launch of its own.  Up to 64 rows, the decode plan: the weights'
+    64-row tiles are wgmma's A operand and x's rows a B operand of ``bn`` =
+    16, 32 or 64 columns, and the whole grid runs at once (it quantizes x
+    together, behind a count every CTA waits for).  Where a cluster of
+    several CTAs a tile fits every tile at once, the cluster splits each
+    tile's 128-byte k-tiles: the fewest k-tiles a CTA, then the fewest
+    CTAs.  Else each CTA takes whole tiles, as many CTAs as run at once.  A CTA keeps its k-tiles
+    of x's codes in shared memory (``_XS_BYTES``); a contraction too long
+    for that takes the tiles of 128 rows.  Every plan gives the same bits (a
+    max and an int32 sum in any order, a rescale per element)."""
     if m > _SMALL_M:
-        return 0, 128
-    return 1, 16 if m <= 16 else 32 if m <= 32 else 64
+        return W8A8Plan(False, 128, 1, 0)
+    bn = 16 if m <= 16 else 32 if m <= 32 else 64
+    tiles = sum(-(-n // _TILE_ROWS) for n in ns)
+    k_tiles = -(-k // _KT)
+    keep = _XS_BYTES // (bn * _KT)  # k-tiles of x's codes a CTA keeps
+    fits = [c for c in range(2, min(_MAX_CLUSTER, k_tiles) + 1)
+            if -(-k_tiles // c) <= keep and tiles <= slots[c - 1]]
+    if fits:
+        return W8A8Plan(True, bn, min(fits, key=lambda c: (-(-k_tiles // c), c)), tiles)
+    if k_tiles > keep:
+        return W8A8Plan(False, 128, 1, 0)
+    return W8A8Plan(True, bn, 1, min(tiles, slots[0]))
+
+
+_SLOTS = {}  # device index -> clusters of 1 .. 8 decode CTAs the card runs at once
+_STATE = {}  # device index -> the decode plan's state (csrc/w8a8.cu: x's codes and scales, a count)
+
+
+def _slots(dev: torch.device) -> tuple:
+    slots = _SLOTS.get(dev.index)
+    if slots is None:
+        fn, n, found = _build.load("w8a8.cu").fwt_w8a8_cluster_slots, ctypes.c_int(), []
+        with torch.cuda.device(dev):
+            for c in range(1, _MAX_CLUSTER + 1):
+                _build.check(fn(c, ctypes.byref(n)), "int8_dense: the cluster slots")
+                found.append(n.value)
+        slots = _SLOTS[dev.index] = tuple(found)
+    return slots
+
+
+def _state(dev: torch.device) -> torch.Tensor:
+    """The device's decode state, zeroed once and kept: CUDA graphs hold
+    its address."""
+    state = _STATE.get(dev.index)
+    if state is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("int8_dense: run one product of up to 64 rows on the device before capturing a "
+                               "CUDA graph of one (its decode state is made then)")
+        nbytes = _build.load("w8a8.cu").fwt_w8a8_state_bytes()
+        state = _STATE[dev.index] = torch.zeros(nbytes, dtype=torch.uint8, device=dev)
+    return state
 
 
 def _int_mm_rows(m: int, k: int) -> int:
@@ -208,9 +280,10 @@ def int8_dense(
     scales and the groups summed in float32, then rescaled by the rows'.
     On a CUDA tensor with per-channel scales: the kernel of
     ``csrc/w8a8.cu`` (``_w8a8``), bit-equal to the composition below and
-    counted in ``int8_dense.launches``; it raises on what it does not
-    take.  Group scales on the card, and every CPU tensor, take the
-    composition.  The call is the span ``fwt.int8_dense``."""
+    counted in ``int8_dense.launches`` (and ``.decode_launches``); it
+    raises on what it does not take.  Group scales on the card, and every
+    CPU tensor, take the composition.  The call is the span
+    ``fwt.int8_dense``."""
     return int8_dense_many(x, (w,), (b,), out_dtype)[0]
 
 
@@ -218,7 +291,8 @@ def int8_dense_many(x: torch.Tensor, ws, bs, out_dtype=None) -> list:
     """``[int8_dense(x, w, b) for w, b in zip(ws, bs)]``, the same bits: on
     the card, with per-channel scales, x's rows are quantized once for all
     the weights (the self-attention's q, k and v; the cross-attention's k
-    and v).  Each product is a span ``fwt.int8_dense``."""
+    and v), and up to 64 rows one launch takes x and three weights.  Each
+    launch of a product kernel is a span ``fwt.int8_dense``."""
     out_dtype = out_dtype or x.dtype
     if x.is_cuda and all(w.s.dim() != w.q.dim() for w in ws):
         return _w8a8(x, ws, bs, out_dtype)
@@ -231,7 +305,11 @@ def int8_dense_many(x: torch.Tensor, ws, bs, out_dtype=None) -> list:
     return outs
 
 
-int8_dense.launches = 0  # csrc/w8a8.cu: one per product (its one or two launches)
+# csrc/w8a8.cu's product kernels: one a weight above 64 rows (after x's
+# quantization, a launch of its own per x), one for x and up to three
+# weights up to 64 rows (the decode plan, counted in decode_launches too)
+int8_dense.launches = 0
+int8_dense.decode_launches = 0
 
 
 def _w8a8(x: torch.Tensor, ws, bs, out_dtype) -> list:
@@ -240,8 +318,10 @@ def _w8a8(x: torch.Tensor, ws, bs, out_dtype) -> list:
     rows; each w.q (K, N) int8 in ``card_layout`` (16-byte aligned), w.s
     (N,) float32; each b None or (N,) bfloat16 or float32; ``out_dtype``
     bfloat16 or float32; K a multiple of 16, N of 8; all on x's device.
-    Anything else raises.  The host's cost per call is most of a decode
-    step's, so each property is read once."""
+    Anything else raises.  The host's cost per call is most of an eager
+    decode step's, so each property is read once.  The decode plan's
+    launches share the device's ``_state``: they run on one stream, as
+    every kernel of the port's decode does."""
     dev, k = x.device, x.shape[-1]
     x_f32, out_f32 = _DTYPES.get(x.dtype), _DTYPES.get(out_dtype)
     if x_f32 is None or out_f32 is None:
@@ -258,45 +338,69 @@ def _w8a8(x: torch.Tensor, ws, bs, out_dtype) -> list:
             raise ValueError("int8_dense: the last axis of x must be contiguous")
     if (ldx << (1 + x_f32)) % 16 or rows.data_ptr() % 16:
         raise ValueError("int8_dense: x's rows must be 16-byte aligned")
-    # x's codes, then their scales 16-byte aligned (csrc/w8a8.cu)
-    scratch = torch.empty(-(-m * k // 16) * 16 + 4 * m, dtype=torch.uint8, device=dev)
-    outs = []
-    for w, b in zip(ws, bs):
+    args = [_weight_args(w, b, k, dev) for w, b in zip(ws, bs)]
+    outs = [torch.empty((*x.shape[:-1], a[2]), dtype=out_dtype, device=dev) for a in args]
+    if not m:
+        return outs
+    lib = _build.load("w8a8.cu")
+    xa = (rows.data_ptr(), x_f32, ldx, m, k)
+    groups = [range(i, min(i + _MAX_WEIGHTS, len(args))) for i in range(0, len(args), _MAX_WEIGHTS)]
+    tiled = []
+    for group in groups:
+        plan = _plan(m, k, [args[j][2] for j in group], _slots(dev)) if m <= _SMALL_M else _plan(m, k, (), ())
+        if not plan.decode:
+            tiled += group
+            continue
+        slots = []
+        for j in group:
+            slots += [*args[j], outs[j].data_ptr()]
+        slots += [None, 0, 0, None, None, 0, None] * (_MAX_WEIGHTS - len(group))
         with span("fwt.int8_dense"):
-            q, s = w.q, w.s
-            if q.dtype != torch.int8 or s.dtype != torch.float32 or q.dim() != 2:
-                raise TypeError(f"int8_dense: codes {q.dtype} {tuple(q.shape)} and scales {s.dtype}, the "
-                                "kernel takes (K, N) int8 and (N,) float32")
-            n = q.shape[1]
-            if s.shape != (n,) or q.shape[0] != k:
-                raise ValueError(f"int8_dense: x {tuple(x.shape)}, codes {tuple(q.shape)}, scales "
-                                 f"{tuple(s.shape)}")
-            if n % _N_ALIGN:
-                raise ValueError(f"int8_dense: width {n}, the kernel takes a multiple of {_N_ALIGN}")
-            one, ldw = q.stride()
-            if one != 1 or ldw % 16 or ldw < k or q.data_ptr() % 16:
-                raise ValueError("int8_dense: the codes must be K-major and 16-byte aligned "
-                                 "(ops.quant.card_layout)")
-            bias_kind = 0
-            if b is not None:
-                bias_kind = 1 + _DTYPES.get(b.dtype, -9)
-                if bias_kind < 1 or b.shape != (n,) or b.stride(0) != 1 or b.device != dev:
-                    raise ValueError(f"int8_dense: bias {b.dtype} {tuple(b.shape)} on {b.device}, the kernel "
-                                     "takes (N,) bfloat16 or float32 on x's device")
-            if q.device != dev or s.device != dev or s.stride(0) != 1:
-                raise ValueError(f"int8_dense: codes on {q.device} and scales on {s.device} (contiguous), "
-                                 f"x on {dev}")
-            out = torch.empty((*x.shape[:-1], n), dtype=out_dtype, device=dev)
-            if m:
-                rc = _build.launch(
-                    dev, _build.load("w8a8.cu").fwt_w8a8_dense, rows.data_ptr(), x_f32, ldx, m, k,
-                    q.data_ptr(), ldw, n, s.data_ptr(), None if b is None else b.data_ptr(), bias_kind,
-                    out.data_ptr(), out_f32, scratch.data_ptr(), int(not outs), *_plan(m),
-                )
+            rc = _build.launch(dev, lib.fwt_w8a8_decode, *xa, out_f32, len(group), *slots, _state(dev).data_ptr(),
+                               plan.bn, plan.cluster, plan.clusters)
+            _build.check(rc, "int8_dense")
+            _build.count(int8_dense)
+            _build.count(int8_dense, "decode_launches")
+    if tiled:
+        # x's codes, then their scales 16-byte aligned (csrc/w8a8.cu)
+        scratch = torch.empty(-(-m * k // 16) * 16 + 4 * m, dtype=torch.uint8, device=dev)
+        for i, j in enumerate(tiled):
+            q, ldw, n, s, b, kind = args[j]
+            with span("fwt.int8_dense"):
+                rc = _build.launch(dev, lib.fwt_w8a8_dense, *xa, q, ldw, n, s, b, kind, outs[j].data_ptr(), out_f32,
+                                   scratch.data_ptr(), int(i == 0))
                 _build.check(rc, "int8_dense")
                 _build.count(int8_dense)
-            outs.append(out)
     return outs
+
+
+def _weight_args(w: QuantizedLinear, b, k: int, dev) -> tuple:
+    """(codes, their row stride, N, scales, bias, bias kind) of one weight
+    for ``csrc/w8a8.cu`` (pointers as ints, None for no bias), after the
+    checks ``_w8a8`` names."""
+    q, s = w.q, w.s
+    if q.dtype != torch.int8 or s.dtype != torch.float32 or q.dim() != 2:
+        raise TypeError(f"int8_dense: codes {q.dtype} {tuple(q.shape)} and scales {s.dtype}, the "
+                        "kernel takes (K, N) int8 and (N,) float32")
+    n = q.shape[1]
+    if s.shape != (n,) or q.shape[0] != k:
+        raise ValueError(f"int8_dense: x's width {k}, codes {tuple(q.shape)}, scales {tuple(s.shape)}")
+    if n % _N_ALIGN:
+        raise ValueError(f"int8_dense: width {n}, the kernel takes a multiple of {_N_ALIGN}")
+    one, ldw = q.stride()
+    if one != 1 or ldw % 16 or ldw < k or q.data_ptr() % 16:
+        raise ValueError("int8_dense: the codes must be K-major and 16-byte aligned "
+                         "(ops.quant.card_layout)")
+    kind = 0
+    if b is not None:
+        kind = 1 + _DTYPES.get(b.dtype, -9)
+        if kind < 1 or b.shape != (n,) or b.stride(0) != 1 or b.device != dev:
+            raise ValueError(f"int8_dense: bias {b.dtype} {tuple(b.shape)} on {b.device}, the kernel "
+                             "takes (N,) bfloat16 or float32 on x's device")
+    if q.device != dev or s.device != dev or s.stride(0) != 1:
+        raise ValueError(f"int8_dense: codes on {q.device} and scales on {s.device} (contiguous), "
+                         f"x on {dev}")
+    return q.data_ptr(), ldw, n, s.data_ptr(), None if b is None else b.data_ptr(), kind
 
 
 def int8_dense_rows(xs, ws, bs, group, out_dtype=None) -> list:

@@ -26,7 +26,8 @@ before it.  A span synchronizes nothing.
 The spans, each where its work happens: ``fwt.vad``, ``fwt.mel``,
 ``fwt.encode``, ``fwt.decode.prefill``, ``fwt.decode.select``,
 ``fwt.decode.step``, ``fwt.decode.logits`` (inside the step),
-``fwt.int8_dense`` (every W8A8 product), ``fwt.decode.capture``,
+``fwt.int8_dense`` (every W8A8 product; on the card every launch of
+one, which takes up to three weights of one x), ``fwt.decode.capture``,
 ``fwt.decode.stop``, ``fwt.collect``, ``fwt.pipeline.chunks``,
 ``fwt.pipeline.segments`` and ``fwt.all_reduce``.  Every name starts with
 ``fwt.``, and no span stays open across a ``yield``.  A beam-search step

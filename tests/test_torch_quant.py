@@ -273,30 +273,106 @@ def test_kernel_wrapper_raises_on_what_the_kernel_does_not_take(case):
     assert PQ.int8_dense.launches == before
 
 
+# Clusters of 1 .. 8 decode CTAs an H100 80GB HBM3 runs at once
+# (``ops.quant._slots`` on the card: one CTA an SM, 132 SMs).
+_H100_SLOTS = (132, 66, 39, 30, 22, 17, 15, 15)
+_TILED = (False, 128, 1, 0)
+
+
 @pytest.mark.parametrize(
-    "m,want",
+    "m,k,ns,want",
     [
-        (1, (1, 16)),
-        (5, (1, 16)),  # the sequential path's 5 beams
-        (16, (1, 16)),
-        (17, (1, 32)),
-        (32, (1, 32)),
-        (33, (1, 64)),
-        (40, (1, 64)),  # a decode step at batch 8 x 5 beams
-        (64, (1, 64)),
-        (65, (0, 128)),
-        (1500, (0, 128)),  # an encode window
-        (12000, (0, 128)),  # a batch of 8 windows
+        (1, 1280, (1280,), (True, 16, 5, 20)),
+        (5, 1280, (1280,), (True, 16, 5, 20)),  # the sequential path's 5 beams
+        (8, 1280, (1280,), (True, 16, 5, 20)),
+        (16, 1280, (1280,), (True, 16, 5, 20)),
+        (17, 1280, (1280,), (True, 32, 5, 20)),
+        (32, 1280, (1280,), (True, 32, 5, 20)),
+        (33, 1280, (1280,), (True, 64, 5, 20)),
+        (40, 1280, (1280,), (True, 64, 5, 20)),  # a decode step at batch 8 x 5 beams: self o, cross q, o
+        (40, 5120, (1280,), (True, 64, 5, 20)),  # mlp.w2
+        (40, 1280, (5120,), (True, 64, 1, 80)),  # mlp.w1: whole tiles, a CTA each
+        (40, 1280, (1280,) * 3, (True, 64, 2, 60)),  # self q, k, v in one launch
+        (40, 1280, (51872,), (True, 64, 1, 132)),  # the logits head: a CTA an SM
+        (5, 5120, (1280,), (True, 16, 5, 20)),
+        (64, 1280, (1280,), (True, 64, 5, 20)),
+        (16, 20480, (1280,), (True, 16, 5, 20)),
+        (40, 64, (128,), (True, 64, 1, 2)),  # a row-parallel shard of a 128-wide model
+        (40, 1040, (136,), (True, 64, 5, 3)),  # a ragged contraction tile
+        (64, 20480, (1280,), _TILED),  # x's codes of a k-tile slice would not fit 8 CTAs
+        (40, 5120, (5120,), _TILED),  # nor every tile at once, nor whole tiles
+        (65, 1280, (1280,), _TILED),
+        (1500, 1280, (1280,), _TILED),  # an encode window
+        (12000, 1280, (1280,) * 3, _TILED),  # a batch of 8 windows
     ],
 )
-def test_plan_follows_the_row_count(m, want):
-    """The kernel's plan is a function of the row count alone: up to 64
-    rows the weight streams as wgmma's A operand and x's rows ride in a B
-    operand of 16, 32 or 64 columns, that hold them all; above, 128-row
-    tiles."""
-    swap, bn = PQ._plan(m)
-    assert (swap, bn) == want
-    assert not swap or m <= bn
+def test_plan_follows_the_row_count(m, k, ns, want):
+    """The kernel's plan is a function of the shape and the card alone: up
+    to 64 rows the decode plan (the weights' 64-row tiles as wgmma's A
+    operand, x's rows in a B operand of 16, 32 or 64 columns that hold them
+    all, every CTA resident at once); a cluster of at most 8 CTAs splits
+    each tile's k-tiles where the card runs a cluster a tile at once, else
+    each CTA takes whole tiles; above 64 rows, or where x's codes would not
+    fit, 128-row tiles."""
+    plan = PQ._plan(m, k, ns, _H100_SLOTS)
+    assert tuple(plan) == want
+    if plan.decode:
+        k_tiles, tiles = -(-k // 128), sum(-(-n // 64) for n in ns)
+        assert m <= plan.bn and 1 <= plan.cluster <= min(8, k_tiles)
+        assert -(-k_tiles // plan.cluster) * plan.bn * 128 <= PQ._XS_BYTES  # x's codes a CTA keeps
+        assert plan.clusters <= _H100_SLOTS[plan.cluster - 1]  # every CTA at once
+        if plan.cluster > 1:
+            assert plan.clusters == tiles  # a tile a cluster
+            assert -(-k_tiles // -(-k_tiles // plan.cluster)) == plan.cluster  # no CTA without k-tiles
+        else:
+            assert plan.clusters == min(tiles, _H100_SLOTS[0])
+
+
+@pytest.mark.parametrize("slots", [(16,) * 8, (78, 39, 26, 19, 15, 13, 11, 9), _H100_SLOTS,
+                                   (144, 72, 48, 36, 28, 24, 16, 16)])
+@pytest.mark.parametrize("k,ns", [(1280, (1280,)), (5120, (1280,)), (1280, (1280,) * 3), (1280, (51872,))])
+def test_plan_fits_the_card_it_is_given(slots, k, ns):
+    """On any card the decode plan launches no more CTAs than run at once
+    (they quantize x together), and splits a tile's contraction only where
+    every tile gets its cluster; a card too small for either takes the
+    128-row tiles."""
+    plan = PQ._plan(40, k, ns, slots)
+    tiles = sum(-(-n // 64) for n in ns)
+    if not plan.decode:
+        assert tuple(plan) == _TILED and k > 18 * 128 and tiles > slots[-1]
+        return
+    assert 1 <= plan.clusters <= slots[plan.cluster - 1]
+    assert plan.cluster == 1 or plan.clusters == tiles
+
+
+def _codes_by_reciprocal(x, s):
+    """``csrc/w8a8.cu::codes8_rcp`` in float32 numpy: q = RN(x RN(1 / s)),
+    rounded half to even, unless q lies within 2^-13 of a half-integer,
+    where the quotient is divided exactly."""
+    y = np.float32(1) / s
+    q = x * y
+    n = np.rint(q)
+    near = np.abs(np.abs(q - n) - np.float32(0.5)) <= np.float32(2.0**-13)
+    return np.where(near, np.rint(x / s), n)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_codes_by_reciprocal_round_as_the_division(seed):
+    """The decode plan's codes take x times the scale's reciprocal, and the
+    exact quotient only near a tie: every code equals rint(RN(x / s)), the
+    composition's, on rows of random x and on x placed a few units in the
+    last place from every half-integer quotient."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((64, 4096)) * 10.0 ** rng.uniform(-3, 3, (64, 1))).astype(np.float32)
+    amax = np.abs(x).max(axis=1, keepdims=True)
+    s = np.maximum(amax * np.float32(1.0 / 127), np.float32(1e-10)).astype(np.float32)
+    ties = (np.arange(-127, 127, dtype=np.float32) + np.float32(0.5))[None, :] * s
+    near = [np.nextafter(ties, np.float32(np.inf) * np.sign(d)) if d else ties for d in (-1, 0, 1)]
+    for k in range(2, 5):
+        near += [ties * np.float32(1 + d * k * 2.0**-23) for d in (-1, 1)]
+    for xs in [x] + near:
+        xs = np.clip(xs, -amax, amax).astype(np.float32)
+        assert np.array_equal(_codes_by_reciprocal(xs, s), np.rint(xs / s))
 
 
 @pytest.mark.cuda
@@ -316,8 +392,9 @@ def test_w8a8_kernel_equals_the_composition_on_the_card(card, m):
 def test_one_decode_step_launches_the_kernel_once_per_product(card, monkeypatch):
     """A small int8 model at a v3 step's rows (batch 8 x 5 beams): the
     encode, prefill and one decode step call ``torch._int_mm`` never, and
-    the step launches the kernel once per product: 8 per decoder layer
-    (self q, k, v, out; cross q, out; mlp w1, w2) and the logits head."""
+    the step launches the kernel once per ``int8_dense_many`` call, each a
+    decode launch: 6 per decoder layer (self q, k and v together, out;
+    cross q, out; mlp w1, w2) and the logits head."""
     import chip_smoke
     from faster_whisper_tpu_torch.transcribe import WhisperModel
 
@@ -331,10 +408,120 @@ def test_one_decode_step_launches_the_kernel_once_per_product(card, monkeypatch)
     mel = torch.randn((8, cfg.n_mels, 3000), generator=g, device="cuda")
     tok0 = torch.randint(0, 256, (8,), generator=g, device="cuda")  # byte tokens of the small vocabulary
     chip_smoke._one_step_logits(model, model.model.encode(mel), tok0,
-                                before_step=lambda: marks.append(PQ.int8_dense.launches))
+                                before_step=lambda: marks.append((PQ.int8_dense.launches,
+                                                                  PQ.int8_dense.decode_launches)))
     torch.cuda.synchronize()
-    assert PQ.int8_dense.launches - marks[0] == 8 * cfg.n_text_layer + 1
+    launches = 6 * cfg.n_text_layer + 1
+    assert PQ.int8_dense.launches - marks[0][0] == launches
+    assert PQ.int8_dense.decode_launches - marks[0][1] == launches
     assert not calls
+
+
+# The decode plan's card tests: every row count of a plan's bn, the decode's
+# (K, N) (the logits head with float32 scores), and per shape the forms
+# (x's dtype, the output's, the bias's or None, qmax, x's rows strided).
+_DECODE_ROWS = (1, 5, 8, 16, 17, 32, 40, 64)
+_DECODE_WIDTHS = ((1280, 1280), (5120, 1280), (1280, 5120), (1280, 51872))
+_DECODE_FORMS = (
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16, 127, False),
+    (torch.float32, torch.float32, torch.float32, 127, True),
+    (torch.bfloat16, torch.bfloat16, None, 7, True),
+    (torch.float32, torch.bfloat16, torch.bfloat16, 7, False),
+)
+
+
+def _tiled_plan(m, k, ns, slots):
+    """The plan above 64 rows, forced at any row count."""
+    return PQ.W8A8Plan(False, 128, 1, 0)
+
+
+def _card_inputs(m, k, n, x_dtype, bias_dtype, qmax, strided, seed):
+    """x (m, k) on the card (its rows 64 elements wider apart when
+    ``strided``, row m // 2 zero), a (k, n) weight quantized on the card,
+    a bias or None."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    x = torch.randn((m, k + 64 * strided), generator=g, device="cuda").to(x_dtype)[:, :k]
+    if m > 1:
+        x[m // 2] = 0
+    w = PQ.quantize_weight(0.02 * torch.randn((k, n), generator=g, device="cuda"), qmax=qmax)
+    b = None if bias_dtype is None else torch.randn((n,), generator=g, device="cuda").to(bias_dtype)
+    return x, w, b
+
+
+def _on_host(x, w, b):
+    return x.cpu(), PQ.QuantizedLinear(w.q.cpu().contiguous(), w.s.cpu()), None if b is None else b.cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", _DECODE_WIDTHS, ids=[f"{k}x{n}" for k, n in _DECODE_WIDTHS])
+@pytest.mark.parametrize("m", _DECODE_ROWS)
+def test_decode_plan_equals_the_composition_and_the_tiled_plan(card, monkeypatch, m, k, n):
+    """One decode launch per call, ``torch.equal`` to the composition
+    (``_quantize_rows``, ``_int_mm``, ``_rescale``) on the host and to the
+    plan above 64 rows forced on the same inputs, in every form."""
+    for i, (x_dtype, out_dtype, bias_dtype, qmax, strided) in enumerate(_DECODE_FORMS):
+        if n > 5120:  # the logits head: float32 scores
+            out_dtype = torch.float32
+        x, w, b = _card_inputs(m, k, n, x_dtype, bias_dtype, qmax, strided, seed=m + k + n + i)
+        assert m == 1 or x.is_contiguous() != strided  # one row is contiguous however wide its parent
+        before = (PQ.int8_dense.launches, PQ.int8_dense.decode_launches)
+        got = PQ.int8_dense(x, w, b, out_dtype=out_dtype)
+        assert (PQ.int8_dense.launches - before[0], PQ.int8_dense.decode_launches - before[1]) == (1, 1)
+        with monkeypatch.context() as patch:
+            patch.setattr(PQ, "_plan", _tiled_plan)
+            tiled = PQ.int8_dense(x, w, b, out_dtype=out_dtype)
+        assert PQ.int8_dense.decode_launches - before[1] == 1
+        want = _composition(*_on_host(x, w, b), out_dtype)
+        assert got.dtype == out_dtype and torch.equal(got.cpu(), want), (i, int((got.cpu() != want).sum()))
+        assert torch.equal(got, tiled)
+
+
+def _three(m, seed):
+    """x (m, 1280) bf16 and the q, k, v weights (1280, 1280) with biases
+    (bq, None, bv)."""
+    x, wq, bq = _card_inputs(m, 1280, 1280, torch.bfloat16, torch.bfloat16, 127, False, seed)
+    wk = _card_inputs(1, 1280, 1280, torch.bfloat16, None, 127, False, seed + 1)[1]
+    wv, bv = _card_inputs(1, 1280, 1280, torch.bfloat16, torch.bfloat16, 127, False, seed + 2)[1:]
+    return x, (wq, wk, wv), (bq, None, bv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [5, 40, 64])
+def test_decode_plan_takes_three_weights_in_one_launch(card, m):
+    """``int8_dense_many`` over q, k and v with biases (bq, None, bv) is
+    one decode launch, equal to three single calls."""
+    x, ws, bs = _three(m, seed=m)
+    before = (PQ.int8_dense.launches, PQ.int8_dense.decode_launches)
+    many = PQ.int8_dense_many(x, ws, bs)
+    assert (PQ.int8_dense.launches - before[0], PQ.int8_dense.decode_launches - before[1]) == (1, 1)
+    singles = [PQ.int8_dense(x, w, b) for w, b in zip(ws, bs)]
+    assert all(torch.equal(y, s) for y, s in zip(many, singles))
+    assert torch.equal(many[1].cpu(), _composition(*_on_host(x, ws[1], None), torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_decode_plan_replays_in_a_cuda_graph(card):
+    """The three-weight call captured in a CUDA graph and replayed twice on
+    new inputs gives the eager call's bits on each."""
+    x, ws, bs = _three(40, seed=3)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        PQ.int8_dense_many(x, ws, bs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = PQ.int8_dense_many(x, ws, bs)
+    g = torch.Generator(device="cuda")
+    for seed in (1, 2):
+        g.manual_seed(seed)
+        x.copy_(torch.randn(x.shape, generator=g, device="cuda"))
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = PQ.int8_dense_many(x, ws, bs)
+        assert all(torch.equal(y, e) for y, e in zip(outs, eager))
+        assert torch.equal(outs[0].cpu(), _composition(*_on_host(x, ws[0], bs[0]), torch.bfloat16))
 
 
 @pytest.mark.cuda
